@@ -1,0 +1,445 @@
+"""ES (edge + surf) scan-to-map odometry — the PFilter paper's core loop.
+
+Port of the ``assoc_once=True`` path of ``pfilter_tpu/models/es_odometry.py``
+(ref ``Odom_ES_EstimationClass``, src/odomEstimationClass.cpp:182-647).  One
+frame =
+
+  1. constant-velocity pose prediction (ref: :235-240),
+  2. voxel downsample of the edge/surf feature clouds (ref: :242-245),
+  3. one tile sort and one 5-NN association per feature type at the
+     predicted pose, then ``opt_count`` outer iterations (12 decaying to 2,
+     ref: :232-233,252) that re-gate the cached neighbours under the refining
+     pose and run 4 Gauss-Newton steps,
+  4. pose-graph window + smoothing, map merge: transform, crop, rgbds
+     re-voxelize, persistence eviction, aging (ref: :589-647).
+
+The step never waits on the host.  ``opt_count`` depends only on the frame
+index, so it is a Python int and the outer loop a Python loop; the one
+device-valued decision (are the maps big enough to register against?) picks
+between the loop's result and the zero-iteration result with
+``torch.where``.  Compaction is a cumsum scatter in place of
+``nonzero(size=)``, and the corrupt-frame guard is a device-side select.
+
+fp32 conditioning: association and GN run in a frame re-centered at the
+predicted translation.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pfilter_tpu_torch.config import PipelineConfig
+from pfilter_tpu_torch.models import map_state
+from pfilter_tpu_torch.ops import gauss_newton as gn
+from pfilter_tpu_torch.ops import knn_tiled, pose_graph, se3, voxel
+
+
+class ESState(NamedTuple):
+    edge_map: knn_tiled.TiledMap
+    surf_map: knn_tiled.TiledMap
+    pose: se3.Pose  # world <- sensor
+    last_pose: se3.Pose
+    opt_count: int  # outer iterations of the last frame (a function of the frame index)
+    pg_q: torch.Tensor  # [K,4] pose-graph window (ops/pose_graph.py)
+    pg_t: torch.Tensor  # [K,3]
+    pg_h: torch.Tensor  # [K,6,6]
+    pg_valid: torch.Tensor  # [K]
+
+
+# Lanes of FrameDiag.overflow — every fixed capacity that can silently drop
+# points gets a counter:
+#   0 edge_compact     extracted edge features beyond capacity.edge_points
+#   1 surf_compact     extracted surf features beyond capacity.surf_points
+#   2 ds_edge_voxel    downsampled-scan voxels beyond ds_edge_points
+#   3 ds_surf_voxel    downsampled-scan voxels beyond ds_surf_points
+#   4 edge_merge_voxel map voxels beyond edge_map_points at merge
+#   5 surf_merge_voxel map voxels beyond surf_map_points at merge
+#   6 tile_cap_over    map points beyond their kNN tile cap (truncation risk)
+#   7 halo_escape      queries whose final pose left their sorted tile's halo
+OVERFLOW_LANES = (
+    "edge_compact",
+    "surf_compact",
+    "ds_edge_voxel",
+    "ds_surf_voxel",
+    "edge_merge_voxel",
+    "surf_merge_voxel",
+    "tile_cap_over",
+    "halo_escape",
+)
+
+
+class FrameDiag(NamedTuple):
+    n_edge_corr: torch.Tensor
+    n_surf_corr: torch.Tensor
+    edge_map_size: torch.Tensor
+    surf_map_size: torch.Tensor
+    dropped: torch.Tensor  # device-side corrupt-frame guard fired
+    overflow: torch.Tensor  # [8] int32 counters, lanes in OVERFLOW_LANES
+    # [2] int32 (edge, surf) mover-contaminated map points (provenance channel
+    # only; 0 otherwise).
+    contam: torch.Tensor
+
+
+def zero_overflow(device=None) -> torch.Tensor:
+    return torch.zeros(len(OVERFLOW_LANES), dtype=torch.int32, device=device)
+
+
+def init_state(cfg: PipelineConfig, rg_width: int = 2, device=None) -> ESState:
+    """``rg_width=3`` enables the provenance channel: rg column 2 carries a
+    mover-origin bit that rides the same voxel max-merge as the counters
+    (diagnostics only; zero effect on the pose)."""
+    k = cfg.pose_graph.window
+    return ESState(
+        edge_map=map_state.empty_index(cfg, "edge", rg_width, device=device),
+        surf_map=map_state.empty_index(cfg, "surf", rg_width, device=device),
+        pose=se3.identity_pose(device),
+        last_pose=se3.identity_pose(device),
+        opt_count=cfg.odometry.max_outer_iters,
+        pg_q=torch.tensor([1.0, 0, 0, 0], device=device).repeat(k, 1),
+        pg_t=torch.zeros((k, 3), dtype=torch.float32, device=device),
+        pg_h=torch.zeros((k, 6, 6), dtype=torch.float32, device=device),
+        pg_valid=torch.zeros(k, dtype=torch.bool, device=device),
+    )
+
+
+def _compact_idx(xyz: torch.Tensor, mask: torch.Tensor, out_cap: int):
+    """Gather masked points into a fixed-size prefix, in index order (the
+    fixed-size ``nonzero``: a cumsum gives each masked point its slot, rows
+    past the capacity and unmasked rows scatter into a dropped row, empty
+    slots read the last point).  Returns (xyz [cap,3], valid [cap], idx [cap])."""
+    n = xyz.shape[0]
+    slot = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    slot = torch.where(mask & (slot < out_cap), slot, torch.full_like(slot, out_cap)).long()
+    idx = torch.full((out_cap + 1,), n - 1, dtype=torch.int64, device=xyz.device)
+    idx.scatter_(0, slot, torch.arange(n, device=xyz.device))
+    idx = idx[:out_cap]
+    valid = torch.arange(out_cap, device=xyz.device) < mask.sum()
+    return xyz[idx], valid, idx
+
+
+def _scan_rg(valid, idx, width: int, cap: int, mover):
+    """Fresh scan-point rg block; column 2 gets the mover-provenance bit."""
+    rg = torch.zeros((cap, width), dtype=torch.float32, device=valid.device)
+    if mover is not None:
+        rg[:, 2] = torch.where(valid, mover[idx].to(torch.float32), torch.zeros_like(rg[:, 2]))
+    return rg
+
+
+def _contam(edge_map, surf_map) -> torch.Tensor:
+    """(edge, surf) map points whose voxel absorbed a mover return."""
+    return torch.stack(
+        [
+            (edge_map.valid & (edge_map.rg[:, 2] > 0.5)).sum(),
+            (surf_map.valid & (surf_map.rg[:, 2] > 0.5)).sum(),
+        ]
+    ).to(torch.int32)
+
+
+def first_frame(state: ESState, feat, cfg: PipelineConfig, mover=None) -> ESState:
+    """Seed the maps with the raw first-scan features (ref
+    ``initMapWithPoints``, src/odomEstimationClass.cpp:217-222)."""
+    cap = cfg.capacity
+    w = state.edge_map.rg.shape[1]
+    e_xyz, e_valid, e_idx = _compact_idx(feat.xyz, feat.edge_mask, cap.edge_map_points)
+    s_xyz, s_valid, s_idx = _compact_idx(feat.xyz, feat.surf_mask, cap.surf_map_points)
+    zeros_e = _scan_rg(e_valid, e_idx, w, cap.edge_map_points, mover)
+    zeros_s = _scan_rg(s_valid, s_idx, w, cap.surf_map_points, mover)
+    origin_t = state.pose.t
+    return state._replace(
+        edge_map=map_state.build_index(e_xyz, zeros_e, e_valid, origin_t, cfg, "edge"),
+        surf_map=map_state.build_index(s_xyz, zeros_s, s_valid, origin_t, cfg, "surf"),
+        opt_count=cfg.odometry.max_outer_iters,
+    )
+
+
+class _AssocStatic(NamedTuple):
+    """Frame-invariant association data: everything derived from the map and
+    the predicted-pose kNN.  Only the distance gate depends on the refining pose."""
+
+    nn_idx: torch.Tensor  # [M,5] map slot ids
+    neigh: torch.Tensor  # [M,5,3] neighbour coords, center-relative
+    nn_valid: torch.Tensor  # [M] query had a full finite 5-NN set
+    geom_a: torch.Tensor  # [M,3] line endpoint a / plane normal
+    geom_b: torch.Tensor  # [M,3] line endpoint b / (plane d, 0, 0)
+    fit_ok: torch.Tensor  # [M]
+    pers_ok: torch.Tensor  # [M] persistence gate (frame-start counters)
+    observe: torch.Tensor  # [M] saturated observe statistic
+    round_: torch.Tensor  # [M]
+    sparsity: torch.Tensor  # [M]
+
+
+def _associate_static(kind: str, grid, map_rg, pose_local: se3.Pose, center, scan_xyz, scan_valid, cfg: PipelineConfig, qsort_bounds) -> _AssocStatic:
+    """The pose-independent half of a correspondence pass (ref
+    ``addEdgeCostFactor``/``addSurfCostFactor``,
+    src/odomEstimationClass.cpp:284-578): 5-NN at the predicted pose,
+    neighbour gather, line/plane fits, persistence read and gate, sparsity."""
+    o = cfg.odometry
+    k = cfg.capacity.knn_k
+
+    q_world = se3.transform_points(pose_local, scan_xyz) + center
+    nn_idx, nn_sq = map_state.query_index_presorted(grid, q_world, qsort_bounds, cfg, kind)
+    nn_valid = scan_valid & torch.isfinite(nn_sq[:, k - 1])
+    nn_idx_l = nn_idx.long()
+
+    neigh = grid.xyz[nn_idx_l] - center  # [M,5,3] local frame for fp32 fits
+    if map_state.is_line_kind(kind):
+        geom_a, geom_b, fit_ok = gn.fit_lines(neigh, o.line_eig_ratio, o.line_half_length)
+    else:
+        normal, d, fit_ok = gn.fit_planes(neigh, o.plane_fit_tol)
+        geom_a = normal
+        zero = torch.zeros_like(d)
+        geom_b = torch.stack([d, zero, zero], -1)
+
+    # Persistence read (ref: :332-344) on frame-start counters.
+    observe = torch.mean(map_rg[nn_idx_l, 1], dim=1) + 1.0
+    round_ = torch.mean(map_rg[nn_idx_l, 0], dim=1)
+    observe = torch.where(observe > o.observe_saturate_ratio * round_, torch.full_like(observe, o.counter_cap), observe)
+    gated_out = (observe < round_ * o.theta_p) & (round_ > o.k_new) & (observe < o.theta_max)
+
+    nc = torch.mean(neigh, dim=1, keepdim=True)
+    sparsity = torch.mean(torch.linalg.vector_norm(neigh - nc, dim=-1), dim=1)
+
+    return _AssocStatic(
+        nn_idx=nn_idx,
+        neigh=neigh,
+        nn_valid=nn_valid,
+        geom_a=geom_a,
+        geom_b=geom_b,
+        fit_ok=fit_ok,
+        pers_ok=~gated_out,
+        observe=observe,
+        round_=round_,
+        sparsity=sparsity,
+    )
+
+
+def _regate(st: _AssocStatic, pose_local: se3.Pose, scan_xyz, gate_sq: float):
+    """Re-gate the cached correspondences under the current pose: a query
+    stays matched iff its worst cached neighbour is within ``gate_sq``."""
+    q_local = se3.transform_points(pose_local, scan_xyz)
+    d5 = torch.sum((q_local[:, None, :] - st.neigh) ** 2, dim=-1)
+    gate = torch.amax(d5, dim=1) < gate_sq
+    matched = st.nn_valid & gate & st.fit_ok
+    return matched, matched & st.pers_ok
+
+
+def _halo_escape_count(q_world, q_valid, bounds, origin, cfg: PipelineConfig, kind: str) -> torch.Tensor:
+    """Tile-sorted queries whose final world position lies more than one
+    tile from the tile they were sorted into (their halo no longer covers
+    the gate ball)."""
+    nt, tc, _ = map_state._tile_params(cfg, kind)
+    ts = float(tc)
+    p = torch.arange(q_world.shape[0], dtype=torch.int32, device=q_world.device)
+    tid_s = torch.clamp(torch.searchsorted(bounds, p, right=True) - 1, 0, nt * nt - 1)
+    tx_s, ty_s = tid_s // nt, tid_s % nt
+    t2 = torch.clamp(torch.floor((q_world[:, :2] - origin[:2]) / ts).to(torch.int32), 1, nt - 2)
+    escaped = q_valid & ((torch.abs(t2[:, 0] - tx_s) > 1) | (torch.abs(t2[:, 1] - ty_s) > 1))
+    return escaped.sum().to(torch.int32)
+
+
+def _weights_from(weight_obs, weight_spr, valid, weight_type: int) -> torch.Tensor:
+    """Residual weights by weightType (ref: :389-426, :536-571)."""
+    if weight_type == 0:
+        return torch.ones_like(weight_obs)
+    w_obs = gn.minmax_normalize_weights(weight_obs, valid, floor=0.1)
+    w_spr = gn.minmax_normalize_weights(weight_spr, valid, floor=0.0)
+    if weight_type == 1:
+        return w_obs
+    if weight_type == 2:
+        return w_spr
+    if weight_type == 12:
+        return 0.5 * (w_obs + w_spr)
+    raise ValueError(f"unknown weight_type {weight_type}")
+
+
+def _es_outer_assoc_once(cfg, opt_count: int, enough, pose0, center, edge_grid, surf_grid, ds_edge, ds_surf, e_bounds, s_bounds):
+    """Hoisted-association outer loop (OdometryConfig.assoc_once): one kNN +
+    gather + fit + persistence pass per feature type per frame; iterations
+    re-gate cached neighbour distances and re-run GN.  ``enough`` (a bool
+    tensor) selects the loop's result or the zero-iteration result.
+
+    Counter semantics: g increments apply once after the loop, scaled by the
+    number of outer iterations run (ref: :345-346)."""
+    o = cfg.odometry
+    k = cfg.capacity.knn_k
+    dev = center.device
+
+    ea = _associate_static("edge", edge_grid, edge_grid.rg, pose0, center, ds_edge.xyz, ds_edge.valid, cfg, e_bounds)
+    sa = _associate_static("surf", surf_grid, surf_grid.rg, pose0, center, ds_surf.xyz, ds_surf.valid, cfg, s_bounds)
+
+    pose_l = pose0
+    h = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+    e_m0 = e_match = e_vc = torch.zeros(ds_edge.xyz.shape[0], dtype=torch.bool, device=dev)
+    s_m0 = s_match = s_vc = torch.zeros(ds_surf.xyz.shape[0], dtype=torch.bool, device=dev)
+    for it in range(opt_count):
+        # Coarse-to-fine: wide gate on the first outer iteration only.
+        gate_sq = o.nn_gate_wide_sq if it == 0 else o.nn_gate_sq
+        e_match, e_vc = _regate(ea, pose_l, ds_edge.xyz, gate_sq)
+        s_match, s_vc = _regate(sa, pose_l, ds_surf.xyz, gate_sq)
+        if it == 0:
+            # Keep the wide first pass's match set for the g increments.
+            e_m0, s_m0 = e_match, s_match
+        factors = [
+            gn.Correspondences("edge", ds_edge.xyz, ea.geom_a, ea.geom_b, _weights_from(ea.observe, ea.sparsity, e_vc, o.weight_type), e_vc),
+            gn.Correspondences("surf", ds_surf.xyz, sa.geom_a, sa.geom_b, _weights_from(sa.observe, sa.sparsity, s_vc, o.weight_type), s_vc),
+        ]
+        for _ in range(o.inner_gn_iters):
+            pose_l, (h, _b) = gn.gn_iteration(pose_l, factors, o.huber_delta, o.gn_damping)
+
+    # Zero iterations when the maps are too small: the loop's outputs revert
+    # to their initial values.
+    def sel(x, x0):
+        return torch.where(enough, x, x0)
+
+    q = sel(pose_l.q, pose0.q)
+    t_l = sel(pose_l.t, pose0.t)
+    h_fin = sel(h, torch.zeros_like(h))
+    e_m0, e_match, e_vc = (x & enough for x in (e_m0, e_match, e_vc))
+    s_m0, s_match, s_vc = (x & enough for x in (s_m0, s_match, s_vc))
+
+    # g increments (ref: :345-346): the wide first pass credits +1, the other
+    # opt_eff-1 narrow passes credit the final match set.
+    scale_rest = float(max(opt_count - 1, 0))
+
+    def apply_inc(grid, nn_idx, m0, m_fin):
+        w = m0.to(torch.float32) + scale_rest * m_fin.to(torch.float32)
+        inc = torch.zeros(grid.rg.shape[0], dtype=torch.float32, device=dev)
+        inc.index_put_((nn_idx.reshape(-1).long(),), w.repeat_interleave(k), accumulate=True)
+        rg = grid.rg.clone()
+        rg[:, 1] = torch.clamp(grid.rg[:, 1] + inc, max=o.counter_cap)
+        return rg
+
+    e_rg = apply_inc(edge_grid, ea.nn_idx, e_m0, e_match)
+    s_rg = apply_inc(surf_grid, sa.nn_idx, s_m0, s_match)
+
+    # Scan-point r/g writeback for the merge (ref: :354-355) — the union of
+    # the per-iteration valid sets.
+    def writeback(st, vc_union, ds_rg):
+        new_rg = torch.stack(
+            [
+                torch.clamp(torch.floor(st.round_), max=o.counter_cap),
+                torch.clamp(torch.floor(st.observe), max=o.counter_cap),
+            ],
+            -1,
+        )
+        new_rg = torch.cat([new_rg, ds_rg[:, 2:]], -1)  # provenance columns keep their values
+        return torch.where(vc_union[:, None], new_rg, ds_rg)
+
+    se_rg = writeback(ea, (e_m0 & ea.pers_ok) | e_vc, ds_edge.rg)
+    ss_rg = writeback(sa, (s_m0 & sa.pers_ok) | s_vc, ds_surf.rg)
+    return q, t_l, e_rg, s_rg, se_rg, ss_rg, e_vc.sum(), s_vc.sum(), h_fin
+
+
+def _reorder(ps: voxel.PointSet, order) -> voxel.PointSet:
+    return voxel.PointSet(xyz=ps.xyz[order], rg=ps.rg[order], valid=ps.valid[order])
+
+
+def es_step(state: ESState, feat, cfg: PipelineConfig, mover=None):
+    """One odometry frame (ref ``updatePointsToMap``,
+    src/odomEstimationClass.cpp:229-282).  ``feat`` is a FeatureResult;
+    ``mover`` an optional [R*C] mover-origin mask aligned with feat.xyz
+    (requires init_state(rg_width=3)).  Returns (new_state, FrameDiag)."""
+    o = cfg.odometry
+    cap = cfg.capacity
+    if not o.assoc_once:
+        raise NotImplementedError("assoc_once=False is not ported yet (ROADMAP.md)")
+    dev = state.pose.t.device
+    w = state.edge_map.rg.shape[1]
+
+    opt_count = max(o.min_outer_iters, state.opt_count - 1)
+    pred = se3.constant_velocity_predict(state.pose, state.last_pose)
+    last_pose = state.pose
+
+    # Downsample feature clouds (ref: :242-245; edge at map_resolution, surf at 2x).
+    e_xyz, e_valid, e_idx = _compact_idx(feat.xyz, feat.edge_mask, cap.edge_points)
+    s_xyz, s_valid, s_idx = _compact_idx(feat.xyz, feat.surf_mask, cap.surf_points)
+    over_e_compact = torch.clamp(feat.edge_mask.sum() - cap.edge_points, min=0)
+    over_s_compact = torch.clamp(feat.surf_mask.sum() - cap.surf_points, min=0)
+    ds_edge, over_ds_e = voxel.voxel_downsample_rgbds_counted(
+        voxel.PointSet(e_xyz, _scan_rg(e_valid, e_idx, w, cap.edge_points, mover), e_valid),
+        o.map_resolution,
+        cap.ds_edge_points,
+    )
+    ds_surf, over_ds_s = voxel.voxel_downsample_rgbds_counted(
+        voxel.PointSet(s_xyz, _scan_rg(s_valid, s_idx, w, cap.surf_points, mover), s_valid),
+        o.map_resolution * 2.0,
+        cap.ds_surf_points,
+    )
+
+    center = pred.t  # fp32 re-centering origin
+    pose0 = se3.Pose(q=pred.q, t=torch.zeros(3, dtype=torch.float32, device=dev))
+    enough = (state.edge_map.valid.sum() > 10) & (state.surf_map.valid.sum() > 50)
+    edge_grid, surf_grid = state.edge_map, state.surf_map
+
+    # Tile-sort each downsampled cloud once per frame at the predicted pose
+    # and keep everything downstream in sorted order.
+    e_sort = map_state.sort_queries_for_index(edge_grid, se3.transform_points(pred, ds_edge.xyz), ds_edge.valid, cfg, "edge")
+    s_sort = map_state.sort_queries_for_index(surf_grid, se3.transform_points(pred, ds_surf.xyz), ds_surf.valid, cfg, "surf")
+    ds_edge = _reorder(ds_edge, e_sort.order)
+    ds_surf = _reorder(ds_surf, s_sort.order)
+
+    q, t_l, e_rg, s_rg, se_rg, ss_rg, ne, ns, h_fin = _es_outer_assoc_once(
+        cfg, opt_count, enough, pose0, center, edge_grid, surf_grid, ds_edge, ds_surf, e_sort.bounds, s_sort.bounds
+    )
+    pose = se3.Pose(q=q, t=t_l + center)
+
+    # Device-side corrupt-frame guard: a non-finite or implausibly large pose
+    # jump rolls the pose back to the previous frame's, with no host sync.
+    finite = torch.isfinite(pose.q).all() & torch.isfinite(pose.t).all()
+    jump = torch.linalg.vector_norm(torch.where(finite, pose.t - state.pose.t, torch.zeros_like(pose.t)))
+    dropped = ~finite | (jump > o.max_jump_m)
+    pose = se3.Pose(q=torch.where(dropped, state.pose.q, pose.q), t=torch.where(dropped, state.pose.t, pose.t))
+    last_pose = se3.Pose(
+        q=torch.where(dropped, state.last_pose.q, last_pose.q),
+        t=torch.where(dropped, state.last_pose.t, last_pose.t),
+    )
+
+    # Pose-graph window: anchors are the raw scan-match poses weighted by
+    # their GN information; a dropped frame enters with near-zero information.
+    pgc = cfg.pose_graph
+    h_anchor = torch.where(dropped, 1e-3 * torch.eye(6, dtype=torch.float32, device=dev), h_fin)
+    pg_q, pg_t, pg_h, pg_valid = pose_graph.push_window(state.pg_q, state.pg_t, state.pg_h, state.pg_valid, pose.q, pose.t, h_anchor)
+    if pgc.enabled:
+        pose = pose_graph.smoothed_newest(pg_q, pg_t, pg_h, pg_valid, pose, pgc)
+
+    # Map merge (ref addPointsToMap, :589-647) in world coords.
+    edge_world = se3.transform_points(pose, ds_edge.xyz)
+    surf_world = se3.transform_points(pose, ds_surf.xyz)
+    new_edge, over_me = map_state.merge_scan_into_index(
+        edge_grid._replace(rg=e_rg), edge_world, se_rg, ds_edge.valid, pose.t, o.map_resolution, cfg, "edge"
+    )
+    new_surf, over_ms = map_state.merge_scan_into_index(
+        surf_grid._replace(rg=s_rg), surf_world, ss_rg, ds_surf.valid, pose.t, o.map_resolution * 2.0, cfg, "surf"
+    )
+    over_tile = map_state.tile_overflow_count(new_edge, cfg, "edge") + map_state.tile_overflow_count(new_surf, cfg, "surf")
+    over_halo = _halo_escape_count(edge_world, ds_edge.valid, e_sort.bounds, edge_grid.origin, cfg, "edge") + _halo_escape_count(
+        surf_world, ds_surf.valid, s_sort.bounds, surf_grid.origin, cfg, "surf"
+    )
+    overflow = torch.stack(
+        [over_e_compact, over_s_compact, over_ds_e, over_ds_s, over_me, over_ms, over_tile, over_halo]
+    ).to(torch.int32)
+
+    new_state = ESState(
+        edge_map=new_edge,
+        surf_map=new_surf,
+        pose=pose,
+        last_pose=last_pose,
+        opt_count=opt_count,
+        pg_q=pg_q,
+        pg_t=pg_t,
+        pg_h=pg_h,
+        pg_valid=pg_valid,
+    )
+    contam = _contam(new_edge, new_surf) if w > 2 else torch.zeros((), dtype=torch.int32, device=dev)
+    diag = FrameDiag(
+        n_edge_corr=ne,
+        n_surf_corr=ns,
+        edge_map_size=new_edge.valid.sum(),
+        surf_map_size=new_surf.valid.sum(),
+        dropped=dropped,
+        overflow=overflow,
+        contam=contam,
+    )
+    return new_state, diag
