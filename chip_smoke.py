@@ -3,30 +3,52 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — ES odometry through ``ESPipeline`` at the full
-width of ``kitti_config()`` (HDL-64, 1800 azimuth, 131072-point scans) on the
-pinned v1 protocol of ``bench.py`` (``make_city_world(seed=7)``,
+Drives the port's paths through ``make_pipeline`` at the full width of
+``kitti_config()`` (HDL-64, 1800 azimuth, 131072-point scans) on the pinned
+v1 protocol of ``bench.py`` (``make_city_world(seed=7)``,
 ``make_loop_trajectory(300, speed=1.5)``, 10 warm-up frames, drift scored at
-100-300 m) — and checks it:
+100-300 m; ES and the default BPF path run the first 150 frames, scored on
+100 m segments, the radius-BPF path all 300), each with every kernel launch
+count set to 0 just before it and read just after, and checks them:
 
 1. device: the card's name and power limit; TF32 off;
 2. build: compiles ``pfilter_tpu_torch/csrc/*.cu`` with nvcc;
-3. the kNN kernel against its plain PyTorch version on the pipeline's own
-   edge and surf maps and queries, and on edge cases (empty tiles, a halo
-   row over the cap, invalid queries, clipped border tiles);
-4. the pipeline: fps, drift, ATE, overflow, kernel launches
-   (must equal 2 x (frames - 1)), drift below the reference's 0.783 %;
-5. the first 20 frames again with the plain kNN on the card: poses must
-   match the kernel run;
-6. CUDA-event times of the kernel, its plain version, and (as a yardstick
+3. ES odometry (``mode="es"``): fps, drift, ATE, overflow, kNN launches
+   (= 2 x (frames - 1)), drift below the reference's 0.783 %;
+4. the kNN kernel against its plain version on that run's edge and surf
+   maps and queries, and on edge cases (empty tiles, a halo row over the
+   cap, invalid queries, clipped border tiles);
+5. the first 20 ES frames again with the plain kNN: poses must match;
+6. CUDA-event times of the kNN kernel, its plain version and (a yardstick
    only) ``torch.cdist`` + ``torch.topk`` over the whole map;
-7. where a steady frame's time goes (torch.profiler: host time per stage,
-   kernel launches, the device's busy share) and which calls synchronise
-   the host while a frame is dispatched.
+7. where a steady ES frame's time goes (torch.profiler) and which calls
+   synchronise the host while a frame is dispatched;
+8. BPF odometry with the default voxel front-end (``mode="bpf"``): fps,
+   drift, ATE, overflow, kNN launches (= 3 x (frames - 1)), drift < 0.783 %;
+9. the kNN kernel against its plain version on that run's beam, pillar and
+   facade maps and queries (tile caps 128, 128, 256), and their CUDA-event
+   times and bounds;
+10. the first 20 default-BPF frames again with the plain kNN: poses within
+    1 mm / 1e-4 rad;
+11. BPF with the radius front-end (``pca.impl=radius``,
+    ``capacity.frontend_tile_cap=5120``): the same as 8, plus PCA kernel
+    launches (= frames) and front-end halo truncation (= 0);
+12. the kNN kernel against its plain version on that run's three channels,
+    and their times and bounds;
+13. the widest halo row of any frame against the cap, and the PCA moment
+    kernel against its plain version at that run's last-frame shapes and on
+    edge cases (the same scan at tile cap 384, invalid
+    queries, empty tiles, clipped border tiles): counts exact, means within
+    1e-4 m, covariances within 1e-3 m^2 per neighbour;
+14. the first 20 radius-BPF frames again with the plain PCA: poses within
+    1 mm / 1e-4 rad;
+15. CUDA-event times of the PCA kernel, its plain version and (a yardstick
+    only) ``(torch.cdist(q, c) < r).float() @ F`` over the whole cloud;
+16. where a steady radius-BPF frame's time goes, and its host syncs (= 0).
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
-is present.  The last two lines are a JSON ``kernels`` record and
-``{"ok": true, "device": {...}}``, preceded by the nvidia-smi line.
+is present.  The last three lines are a JSON ``kernels`` record, the
+nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -41,7 +63,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-FRAMES = 300
+FRAMES = 300  # rendered scans; the radius-BPF path runs all of them
+# The script must finish well inside the chip run's time limit, and the host
+# takes 0.4-0.75 s per frame; the earlier paths run at 150 frames (100 m
+# segments still score), the slice's kernel path at the full 300.
+ES_FRAMES = 150
+BPF_FRAMES = 150
 WARMUP = 10
 SPEED = 1.5
 AZIMUTH = 1800
@@ -51,10 +78,16 @@ PLAIN_FRAMES = 20
 POSE_TOL_M = 1e-3
 POSE_TOL_RAD = 1e-4
 REPEATS = 50
-PROFILE_FRAMES = 4
+PROFILE_FRAMES = 1  # the profiler and its trace processing cost ~15-30 s per profiled frame
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 FLOPS_PER_PAIR = 8  # 3 sub + 3 mul + 2 add per (query, candidate)
+FLOPS_PER_HIT = 16  # 10 adds + 6 products per (query, in-ball candidate)
+TPU_BPF_DRIFT = 0.3609  # the reference package's BPF v1 drift on a TPU v5 lite (BENCH_r05.json)
+RADIUS_OVERRIDES = ("pca.impl=radius", "capacity.frontend_tile_cap=5120")
+PLAIN_REPEATS = 5
+MEAN_TOL_M = 1e-4
+COV_TOL_PER_POINT = 1e-3
 
 
 def log(msg: str) -> None:
@@ -126,6 +159,34 @@ def frame_queries(pipe_cfg, state, xyz, valid):
     return out
 
 
+def bpf_frame_queries(cfg, state, xyz, valid):
+    """The beam, pillar and facade kNN inputs of the next BPF step: the main
+    path's front-end, compaction, downsampling and tile sort at the
+    constant-velocity pose, with the queries placed as
+    ``es_odometry._associate_static`` places them."""
+    from pfilter_tpu_torch.models import bpf_frontend, map_state
+    from pfilter_tpu_torch.models import bpf_odometry as bo
+    from pfilter_tpu_torch.models.es_odometry import _compact_idx
+    from pfilter_tpu_torch.ops import se3, voxel
+
+    cap = cfg.capacity
+    fr = bpf_frontend.run_frontend(xyz, valid, cfg)
+    masks = {"beam": fr.beam_mask, "pillar": fr.pillar_mask, "facade": fr.facade_mask}
+    pred = se3.constant_velocity_predict(state.pose, state.last_pose)
+    pose0 = se3.Pose(q=pred.q, t=torch.zeros_like(pred.t))
+    out = {}
+    for kind in bo.CHANNELS:
+        tmap = getattr(state, kind + "_map")
+        comp_cap = bo._compact_cap(cfg, kind)
+        ds_cap = cap.ds_edge_points if map_state.is_line_kind(kind) else cap.ds_surf_points
+        p, v, _ = _compact_idx(xyz, masks[kind], comp_cap)
+        ds, _ = voxel.voxel_downsample_rgbds_counted(voxel.PointSet(p, torch.zeros_like(p[:, :2]), v), bo._leaf(cfg, kind), ds_cap)
+        qs = map_state.sort_queries_for_index(tmap, se3.transform_points(pred, ds.xyz), ds.valid, cfg, kind)
+        q = se3.transform_points(pose0, ds.xyz[qs.order]) + pred.t
+        out[kind] = (tmap, q.contiguous(), qs.bounds, map_state._tile_params(cfg, kind))
+    return out
+
+
 def compare(knn, tmap, q, bounds, params, name):
     nt, tc, tcap = params
     rk = knn._query_tiled_sorted_cuda(tmap, q, bounds, nt, tc, tcap, 5)
@@ -142,7 +203,8 @@ def compare(knn, tmap, q, bounds, params, name):
     diff = ik != ip
     ties_ok = np.all(np.all(xt[ik[diff]] == xt[ip[diff]], axis=-1)) if diff.any() else True
     check(ties_ok, f"{name}: {int(diff.sum())} indices differ at distinct coordinates")
-    log(f"  {name}: Q={q.shape[0]} finite={int(fin.sum())} idx_mismatch={int(diff.sum())} max_abs_err={err:.3e}")
+    log(f"  {name}: Q={q.shape[0]} valid={int(bounds[nt * nt])} map={int(tmap.tile_start[nt * nt])} tile_cap={tcap} "
+        f"finite={int(fin.sum())} idx_mismatch={int(diff.sum())} max_abs_err={err:.3e}")
     return err
 
 
@@ -202,23 +264,62 @@ def knn_bound(knn, tmap, q, bounds, params):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), pairs, nbytes
 
 
-def profile_steady_frames(cfg, frames, ESPipeline):
+def time_knn(knn, inputs, label):
+    """CUDA-event times of the kNN kernel, its plain version and the
+    yardstick on each map's inputs, with each call's bound."""
+    per_shape = {}
+    for kind, (tmap, q, bounds, params) in inputs.items():
+        nt, tc, tcap = params
+        ms = time_cuda(lambda: knn._query_tiled_sorted_cuda(tmap, q, bounds, nt, tc, tcap, 5))
+        plain_ms = time_cuda(lambda: knn.query_tiled_sorted_plain(tmap, q, bounds, nt, tc, tcap, 5))
+        mx = tmap.xyz[tmap.valid]
+        yard_ms = time_cuda(lambda: torch.topk(torch.cdist(q, mx), 5, dim=1, largest=False))
+        bound_ms, bound_by, pairs, nbytes = knn_bound(knn, tmap, q, bounds, params)
+        per_shape[f"{label}_{kind}"] = dict(
+            queries=int(bounds[nt * nt]), map_points=int(mx.shape[0]), tile_cap=tcap, ms=ms, plain_ms=plain_ms,
+            cdist_topk_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, bytes=nbytes,
+        )
+        log(f"  {label} {kind}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  cdist+topk (whole map, yardstick) {yard_ms:.4f} ms  "
+            f"bound {bound_ms:.5f} ms ({bound_by}; {pairs:.0f} pairs, {nbytes} bytes)")
+    return per_shape
+
+
+def knn_frame_totals(per_shape, label):
+    """Per-frame kNN sums over one path's maps."""
+    rows = [v for k, v in per_shape.items() if k.startswith(label + "_")]
+    tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "cdist_topk_ms")}
+    t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
+    tot["bound_by"] = "bytes" if t_bytes >= tot["bound_ms"] else "operations"
+    return tot
+
+
+def plain_knn_rerun(knn, make_pipe, frames, ref, name):
+    """The first PLAIN_FRAMES frames of a path with the plain kNN swapped in;
+    poses held to POSE_TOL_M / POSE_TOL_RAD against the kernel run ``ref``."""
+    kernel_path = knn.query_tiled_sorted
+    knn.query_tiled_sorted = knn.query_tiled_sorted_plain
+    try:
+        plain = make_pipe()
+        for i in range(PLAIN_FRAMES):
+            plain.process_frame(*frames[i])
+    finally:
+        knn.query_tiled_sorted = kernel_path
+    pq, pt = plain.trajectory
+    dt = float(np.max(np.linalg.norm(pt - ref["t"][:PLAIN_FRAMES], axis=1)))
+    dr = float(np.max(rotation_angle(pq, ref["q"][:PLAIN_FRAMES])))
+    log(f"  max pose difference: {dt:.3e} m, {dr:.3e} rad")
+    check(dt <= POSE_TOL_M and dr <= POSE_TOL_RAD, f"{name}: plain-kNN poses differ: {dt} m, {dr} rad")
+
+
+def profile_steady_frames(make_pipe, frames, stages, check_syncs: bool):
     """Profile frames WARMUP..WARMUP+PROFILE_FRAMES of a fresh run, with a
-    span around each stage of the step (wrapped here, not in the package):
-    host time per stage, kernel launches per frame, and the device's busy
-    share of the wall time (profiler on, so the wall is inflated)."""
+    span around each stage (wrapped here, not in the package): host time per
+    stage, kernel launches per frame, and the device's busy share of the wall
+    time (profiler on, so the wall is inflated).  Then count the call sites
+    that synchronise the host while two frames are dispatched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from pfilter_tpu_torch.models import es_odometry, map_state
-    from pfilter_tpu_torch.ops import features, pose_graph
-
-    stages = [
-        (features, "extract_features"),
-        (es_odometry, "_es_outer_assoc_once"),
-        (pose_graph, "smoothed_newest"),
-        (map_state, "merge_scan_into_index"),
-    ]
     originals = [(mod, name, getattr(mod, name)) for mod, name in stages]
 
     def spanned(name, fn):
@@ -228,7 +329,7 @@ def profile_steady_frames(cfg, frames, ESPipeline):
 
         return run
 
-    pipe = ESPipeline(cfg, sync=False, fetch_lag=4)
+    pipe = make_pipe()
     for i in range(WARMUP):
         pipe.process_frame(*frames[i])
     pipe.flush()
@@ -278,29 +379,164 @@ def profile_steady_frames(cfg, frames, ESPipeline):
         {f"{Path(w.filename).name}:{w.lineno}" for w in caught if "called a synchronizing CUDA operation" in str(w.message)}
     )
     log(f"  host syncs while dispatching 2 frames: {len(syncs)} call sites {syncs}")
+    if check_syncs:
+        check(not syncs, f"a frame's dispatch synchronises the host at {syncs}")
+
+
+def run_protocol(pipe, frames, gt, metrics, n_frames):
+    """Warm up, time the steady loop over ``n_frames``, score drift and ATE
+    against ``gt``."""
+    gt = gt[:n_frames]
+    for i in range(WARMUP):
+        pipe.process_frame(*frames[i])
+    pipe.flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WARMUP, n_frames):
+        pipe.process_frame(*frames[i])
+    pipe.flush()
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    q_est, t_est = pipe.trajectory
+    est = metrics.poses_to_matrices(q_est, t_est)
+    path = metrics.trajectory_distances(gt)[-1]
+    lengths = tuple(length for length in LENGTHS if length <= path * 0.8)
+    drift = metrics.kitti_drift(gt, est, lengths=lengths, step=10)
+    r = dict(
+        fps=(n_frames - WARMUP) / steady_s,
+        ms=steady_s / (n_frames - WARMUP) * 1e3,
+        drift=drift["t_err_pct"],
+        r_err=drift["r_err_deg_per_m"],
+        segments=drift["n_segments"],
+        ate=metrics.ate_rmse(gt, est),
+        path=path,
+        overflow=pipe.overflow_total,
+        dropped=pipe.n_dropped,
+        q=q_est,
+        t=t_est,
+    )
+    log(f"  frames/s {r['fps']:.3f}  ms/frame {r['ms']:.2f}  (steady {n_frames - WARMUP} of {n_frames} frames)")
+    log(f"  drift_t_pct {r['drift']:.4f}  r_err_deg_per_m {r['r_err']:.6f}  segments {r['segments']}  lengths {lengths}")
+    log(f"  ate_rmse_m {r['ate']:.4f}  path_m {path:.1f}  overflow_total {r['overflow']}  n_dropped {r['dropped']}")
+    return r
+
+
+def gate_protocol(name, r):
+    """Zero overflow, finite poses, drift below the reference's bar."""
+    check(r["overflow"] == 0, f"{name}: overflow_total {r['overflow']} != 0")
+    check(np.isfinite(r["q"]).all() and np.isfinite(r["t"]).all(), f"{name}: non-finite poses")
+    check(r["segments"] > 0 and r["drift"] < DRIFT_BAR, f"{name}: drift {r['drift']} not below {DRIFT_BAR}")
+
+
+def nonground_cloud(cfg, xyz, valid):
+    """The radius front-end's moment input for one scan: the non-ground
+    points that survive ground removal and DCVC."""
+    from pfilter_tpu_torch.ops import dcvc, ground
+
+    ng = ground.segment_ground_dispatch(xyz, valid, cfg).nonground_mask
+    return dcvc.cluster(xyz, ng, cfg.dcvc, cfg.lidar).keep
+
+
+def tiled_cloud(knn, xyz, valid, nt, tc, tile_cap):
+    origin = knn.tile_origin_for_pose(torch.zeros(3, device=xyz.device), nt, tc)
+    return knn.build_tiled(xyz, torch.zeros((xyz.shape[0], 2), device=xyz.device), valid, origin, nt, tc, tile_cap)
+
+
+def pca_edge_inputs(knn, xyz, ng, nt, tc):
+    """The scan at tile cap 384 (near-sensor rows overflow the cap by
+    thousands of slots), with points and queries in the clipped border
+    tiles, queries far outside the window, and ~10 % invalid queries."""
+    dev = xyz.device
+    g = torch.Generator(device="cpu").manual_seed(5)
+    half = nt * tc / 2.0
+    border = torch.rand((600, 3), generator=g) * torch.tensor([7.9, 60.0, 4.0]) + torch.tensor([half - 8.0, -30.0, -2.0])
+    far = torch.rand((2000, 3), generator=g) * 600.0 - 300.0
+    mxyz = torch.cat([xyz, border.to(dev)])
+    mvalid = torch.cat([ng, torch.ones(600, dtype=torch.bool, device=dev)])
+    q = torch.cat([mxyz, far.to(dev)])
+    qv = torch.cat([mvalid & (torch.rand(mvalid.shape[0], generator=g) > 0.1).to(dev), torch.ones(2000, dtype=torch.bool, device=dev)])
+    return tiled_cloud(knn, mxyz, mvalid, nt, tc, 384), q, qv, (nt, tc, 384)
+
+
+def compare_pca(knn, pr, tmap, q, qv, params, name):
+    """Kernel against plain on the same inputs: counts exact, means within
+    MEAN_TOL_M, covariances within COV_TOL_PER_POINT per neighbour."""
+    nt, tc, tcap = params
+    before = pr.KERNEL_LAUNCHES
+    a = pr.radius_pca_moments(tmap, q, qv, nt, tc, tcap)
+    b = pr.radius_pca_moments_plain(tmap, q, qv, nt, tc, tcap)
+    torch.cuda.synchronize()
+    check(pr.KERNEL_LAUNCHES == before + 1, f"{name}: the kernel did not launch")
+    ac, bc = a.count.cpu().numpy(), b.count.cpu().numpy()
+    check(np.array_equal(ac, bc), f"{name}: counts differ in {int((ac != bc).sum())} rows")
+    d_mean = float((a.mean - b.mean).abs().max())
+    d_cov = (a.cov - b.cov).abs().amax(dim=(1, 2)).cpu().numpy()
+    d_cov_pp = float(np.max(d_cov / np.maximum(bc, 1.0)))
+    err = max(d_mean, float(d_cov.max()))
+    check(d_mean <= MEAN_TOL_M, f"{name}: mean differs by {d_mean} m")
+    check(d_cov_pp <= COV_TOL_PER_POINT, f"{name}: covariance differs by {d_cov_pp} m^2 per neighbour")
+    _, c_cnt = knn._halo_ranges(tmap, nt, 2**31 - 1)
+    nt2 = nt * nt
+    filled = int(((tmap.tile_start[1:] - tmap.tile_start[:-1]) > 0).sum())
+    log(f"  {name}: Q={q.shape[0]} valid={int(qv.sum())} tile_cap={tcap} widest halo row {int(c_cnt.max())} slots "
+        f"(cap {3 * tcap}), truncated {int(knn.halo_overflow(tmap, nt, 3 * tcap))}; {nt2 - filled} empty tiles; "
+        f"neighbours {bc.sum():.0f}; max |d count| 0, |d mean| {d_mean:.3e} m, |d cov| {d_cov.max():.3e} m^2 "
+        f"({d_cov_pp:.3e} per neighbour)")
+    return err, float(bc.sum())
+
+
+def pca_bound(knn, tmap, q, qv, params, hits):
+    """Least time for one moments call: bytes it must move (valid queries,
+    live map coordinates, tile ranges read once; the [Q,10] sums written
+    once) over HBM bandwidth, and the distance work of this frame's (query,
+    candidate) pairs plus the sums of its in-ball pairs over the fp32 rate."""
+    nt, tc, tcap = params
+    nt2 = nt * nt
+    qs = knn.sort_queries(q, qv, tmap.origin, nt, tc)
+    _, c_cnt = knn._halo_ranges(tmap, nt, 3 * tcap)
+    per_tile = (qs.bounds[1:] - qs.bounds[:-1]).to(torch.float64)
+    pairs = float((per_tile * c_cnt.sum(-1).to(torch.float64)).sum())
+    n_q = int(qs.bounds[nt2])
+    live = int(tmap.tile_start[nt2])
+    nbytes = n_q * 12 + live * 12 + 2 * 4 * (nt2 + 1) + 12 + q.shape[0] * 10 * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (pairs * FLOPS_PER_PAIR + hits * FLOPS_PER_HIT) / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), pairs, nbytes
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from pfilter_tpu_torch.config import kitti_config
-    from pfilter_tpu_torch.ops import _build
+    from pfilter_tpu_torch.config import apply_dotted_overrides, kitti_config
+    from pfilter_tpu_torch.models import bpf_frontend, bpf_odometry, es_odometry, map_state
+    from pfilter_tpu_torch.ops import _build, dcvc, features, ground, pca_classify, pose_graph
     from pfilter_tpu_torch.ops import knn_tiled as knn
-    from pfilter_tpu_torch.pipeline import ESPipeline
+    from pfilter_tpu_torch.ops import pca_radius as pr
+    from pfilter_tpu_torch.pipeline import make_pipeline
     from pfilter_tpu_torch.utils import metrics, synthetic
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
 
-    log("== phase 1: device")
+    def phase(title):
+        log(f"== {title}  [+{time.perf_counter() - t_start:.1f} s]")
+
+    def zero_counts():
+        knn.KERNEL_LAUNCHES = 0
+        pr.KERNEL_LAUNCHES = 0
+
+    def read_counts():
+        return {"knn_tiled": knn.KERNEL_LAUNCHES, "pca_radius": pr.KERNEL_LAUNCHES}
+
+    phase("phase 1: device")
     smi = nvidia_smi_line()
     log(f"  nvidia-smi: {smi}")
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("== phase 2: build")
+    phase("phase 2: build")
     _build.load()
     log(f"  built {_build.BUILD_INFO['path']} in {_build.BUILD_INFO['seconds']:.1f} s")
     for line in _build.BUILD_INFO["log"].splitlines():
@@ -308,49 +544,31 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     cfg = kitti_config()
+    cfg_bpf = cfg.replace(mode="bpf")
+    cfg_rad = apply_dotted_overrides(cfg_bpf, RADIUS_OVERRIDES)
     world = synthetic.make_city_world(seed=7)
     poses = synthetic.make_loop_trajectory(FRAMES, speed=SPEED)
     t0 = time.perf_counter()
     frames = render_all(cfg, world, poses, synthetic, dev)
     log(f"  rendered {FRAMES} scans on the card in {time.perf_counter() - t0:.1f} s")
-
-    log("== phase 4: pipeline on the card (kitti_config, v1 protocol)")
-    pipe = ESPipeline(cfg, sync=False, fetch_lag=4)
-    knn.KERNEL_LAUNCHES = 0
-    for i in range(WARMUP):
-        pipe.process_frame(*frames[i])
-    pipe.flush()
-    torch.cuda.synchronize()
-    t_steady = time.perf_counter()
-    for i in range(WARMUP, FRAMES):
-        pipe.process_frame(*frames[i])
-    pipe.flush()
-    torch.cuda.synchronize()
-    steady_s = time.perf_counter() - t_steady
-    launches = knn.KERNEL_LAUNCHES
-    fps = (FRAMES - WARMUP) / steady_s
-    q_est, t_est = pipe.trajectory
     gt = metrics.poses_to_matrices(np.asarray(poses.q), np.asarray(poses.t))
     gt = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
-    est = metrics.poses_to_matrices(q_est, t_est)
-    path = metrics.trajectory_distances(gt)[-1]
-    lengths = tuple(length for length in LENGTHS if length <= path * 0.8)
-    drift = metrics.kitti_drift(gt, est, lengths=lengths, step=10)
-    ate = metrics.ate_rmse(gt, est)
-    log(f"  frames/s {fps:.3f}  ms/frame {steady_s / (FRAMES - WARMUP) * 1e3:.2f}  (steady {FRAMES - WARMUP} frames)")
-    log(f"  drift_t_pct {drift['t_err_pct']:.4f}  r_err_deg_per_m {drift['r_err_deg_per_m']:.6f}  segments {drift['n_segments']}  lengths {lengths}")
-    log(f"  ate_rmse_m {ate:.4f}  path_m {path:.1f}")
-    log(f"  overflow_total {pipe.overflow_total}  n_dropped {pipe.n_dropped}  knn_kernel_launches {launches}")
-    check(pipe.overflow_total == 0, f"overflow_total {pipe.overflow_total} != 0")
-    check(np.isfinite(q_est).all() and np.isfinite(t_est).all(), "non-finite poses")
-    check(launches == 2 * (FRAMES - 1), f"kernel launches {launches} != {2 * (FRAMES - 1)}")
-    check(drift["n_segments"] > 0 and drift["t_err_pct"] < DRIFT_BAR, f"drift {drift['t_err_pct']} not below {DRIFT_BAR}")
+    launches = {}
 
-    log("== phase 3: kernel vs plain version at main-path shapes")
-    inputs = frame_queries(pipe.cfg, pipe.state, *frames[FRAMES - 1])
-    max_err = 0.0
+    phase("phase 3: ES odometry on the card (kitti_config, v1 protocol, %d frames)" % ES_FRAMES)
+    pipe = make_pipeline(cfg, sync=False, fetch_lag=4)
+    zero_counts()
+    es = run_protocol(pipe, frames, gt, metrics, ES_FRAMES)
+    launches["es"] = read_counts()
+    log(f"  kernel launches {launches['es']}")
+    gate_protocol("es", es)
+    check(launches["es"]["knn_tiled"] == 2 * (ES_FRAMES - 1), f"es: kNN launches {launches['es']} != {2 * (ES_FRAMES - 1)}")
+
+    phase("phase 4: kNN kernel vs plain version at main-path shapes")
+    inputs = frame_queries(pipe.cfg, pipe.state, *frames[ES_FRAMES - 1])
+    knn_err = 0.0
     for kind, (tmap, q, bounds, params) in inputs.items():
-        max_err = max(max_err, compare(knn, tmap, q, bounds, params, f"{kind} map"))
+        knn_err = max(knn_err, compare(knn, tmap, q, bounds, params, f"{kind} map"))
     surf_params = inputs["surf"][3]
     tmap_e, q_e, b_e = edge_case_inputs(knn, dev, surf_params)
     nt, _, tcap = surf_params
@@ -358,43 +576,128 @@ def main() -> int:
     n_inv = int(q_e.shape[0] - b_e[nt * nt])
     log(f"  edge cases: widest halo row over the cap by {over} slots; {n_inv} invalid queries")
     check(over > 0 and n_inv > 0, "edge-case map does not exercise the cap or invalid queries")
-    max_err = max(max_err, compare(knn, tmap_e, q_e, b_e, surf_params, "edge cases"))
+    knn_err = max(knn_err, compare(knn, tmap_e, q_e, b_e, surf_params, "edge cases"))
 
-    log("== phase 5: first 20 frames with the plain kNN on the card")
-    kernel_path = knn.query_tiled_sorted
-    knn.query_tiled_sorted = knn.query_tiled_sorted_plain
+    phase("phase 5: first %d ES frames with the plain kNN on the card" % PLAIN_FRAMES)
+    plain_knn_rerun(knn, lambda: make_pipeline(cfg, sync=True), frames, es, "es")
+
+    phase("phase 6: kNN times (CUDA events, %d repeats)" % REPEATS)
+    per_shape = time_knn(knn, inputs, "es")
+
+    phase("phase 7: where an ES frame's time goes (torch.profiler, %d steady frames)" % PROFILE_FRAMES)
+    profile_steady_frames(
+        lambda: make_pipeline(cfg, sync=False, fetch_lag=4),
+        frames,
+        [(features, "extract_features"), (es_odometry, "_es_outer_assoc_once"), (pose_graph, "smoothed_newest"), (map_state, "merge_scan_into_index")],
+        check_syncs=False,
+    )
+
+    phase("phase 8: BPF odometry, default (voxel) front-end (v1 protocol, %d frames)" % BPF_FRAMES)
+    pipe = make_pipeline(cfg_bpf, sync=False, fetch_lag=4)
+    zero_counts()
+    bpf = run_protocol(pipe, frames, gt, metrics, BPF_FRAMES)
+    launches["bpf_voxel"] = read_counts()
+    log(f"  kernel launches {launches['bpf_voxel']}; map sizes (beam, pillar, facade) {pipe.records[-1].map_sizes.tolist()}")
+    log(f"  the reference package's BPF drift on the 300-frame protocol, on a TPU v5 lite (BENCH_r05.json): {TPU_BPF_DRIFT} %")
+    gate_protocol("bpf", bpf)
+    check(launches["bpf_voxel"]["knn_tiled"] == 3 * (BPF_FRAMES - 1), f"bpf: kNN launches {launches['bpf_voxel']} != {3 * (BPF_FRAMES - 1)}")
+
+    phase("phase 9: kNN kernel vs plain version at the default BPF path's shapes, and times")
+    inputs = bpf_frame_queries(pipe.cfg, pipe.state, *frames[BPF_FRAMES - 1])
+    for kind, (tmap, q, bounds, params) in inputs.items():
+        knn_err = max(knn_err, compare(knn, tmap, q, bounds, params, f"bpf {kind} map"))
+    per_shape.update(time_knn(knn, inputs, "bpf_voxel"))
+
+    phase("phase 10: first %d default-BPF frames with the plain kNN on the card" % PLAIN_FRAMES)
+    plain_knn_rerun(knn, lambda: make_pipeline(cfg_bpf, sync=True), frames, bpf, "bpf")
+
+    phase("phase 11: BPF odometry, radius front-end %s (v1 protocol, %d frames)" % (RADIUS_OVERRIDES, FRAMES))
+    pipe = make_pipeline(cfg_rad, sync=False, fetch_lag=4)
+    zero_counts()
+    rad = run_protocol(pipe, frames, gt, metrics, FRAMES)
+    launches["bpf_radius"] = read_counts()
+    trunc = [r.n_scan_trunc for r in pipe.records]  # tensor scans: no raw-scan truncation, all front-end
+    div_t = np.linalg.norm(rad["t"][:BPF_FRAMES] - bpf["t"], axis=1)
+    div_r = rotation_angle(rad["q"][:BPF_FRAMES], bpf["q"])
+    log(f"  kernel launches {launches['bpf_radius']}; front-end halo truncation {sum(trunc)} slots "
+        f"(worst frame {max(trunc)}); map sizes {pipe.records[-1].map_sizes.tolist()}")
+    log(f"  divergence from the voxel front-end's poses over {BPF_FRAMES} frames: max {div_t.max():.4f} m (frame {int(div_t.argmax())}), "
+        f"last {div_t[-1]:.4f} m; max {div_r.max():.3e} rad")
+    check(launches["bpf_radius"]["pca_radius"] == FRAMES, f"bpf radius: PCA launches {launches['bpf_radius']} != {FRAMES}")
+    check(launches["bpf_radius"]["knn_tiled"] == 3 * (FRAMES - 1), f"bpf radius: kNN launches {launches['bpf_radius']}")
+    check(sum(trunc) == 0, f"bpf radius: front-end halo truncation {sum(trunc)} != 0")
+    gate_protocol("bpf radius", rad)
+
+    phase("phase 12: kNN kernel vs plain version at the radius BPF path's shapes, and times")
+    inputs = bpf_frame_queries(pipe.cfg, pipe.state, *frames[FRAMES - 1])
+    for kind, (tmap, q, bounds, params) in inputs.items():
+        knn_err = max(knn_err, compare(knn, tmap, q, bounds, params, f"bpf radius {kind} map"))
+    per_shape.update(time_knn(knn, inputs, "bpf_radius"))
+    knn_tot = {label: knn_frame_totals(per_shape, label) for label in ("es", "bpf_voxel", "bpf_radius")}
+    for label, tot in knn_tot.items():
+        log(f"  kNN per {label} frame: kernel {tot['ms']:.4f} ms  plain {tot['plain_ms']:.4f} ms  bound {tot['bound_ms']:.5f} ms")
+
+    phase("phase 13: PCA kernel vs plain version at main-path shapes and edge cases")
+    nt, tc, tcap = cfg_rad.capacity.knn_tiles, cfg_rad.capacity.tile_cells, cfg_rad.capacity.frontend_tile_cap
+    widest = [int(knn._halo_ranges(tiled_cloud(knn, x, nonground_cloud(cfg_rad, x, v), nt, tc, tcap), nt, 2**31 - 1)[1].max()) for x, v in frames]
+    log(f"  widest 3-tile halo row over all {FRAMES} frames: {max(widest)} slots (frame {int(np.argmax(widest))}); "
+        f"cap 3 x {tcap} = {3 * tcap}; the shipped 3 x {cfg.capacity.frontend_tile_cap} = {3 * cfg.capacity.frontend_tile_cap}")
+    xyz_l, valid_l = frames[FRAMES - 1]
+    ng = nonground_cloud(cfg_rad, xyz_l, valid_l)
+    tmap_l = tiled_cloud(knn, xyz_l, ng, nt, tc, tcap)
+    pca_err, hits = compare_pca(knn, pr, tmap_l, xyz_l, ng, (nt, tc, tcap), "last frame")
+    tmap_x, q_x, qv_x, params_x = pca_edge_inputs(knn, xyz_l, ng, nt, tc)
+    check(int(knn.halo_overflow(tmap_x, nt, 3 * 384)) > 0, "edge case does not overflow the cap")
+    pca_err = max(pca_err, compare_pca(knn, pr, tmap_x, q_x, qv_x, params_x, "edge cases")[0])
+
+    phase("phase 14: first %d radius-BPF frames with the plain PCA on the card" % PLAIN_FRAMES)
+    kernel_path = pr.radius_moments_sorted
+    pr.radius_moments_sorted = pr.radius_moments_sorted_plain
     try:
-        plain = ESPipeline(cfg, sync=True)
+        plain = make_pipeline(cfg_rad, sync=True)
         for i in range(PLAIN_FRAMES):
             plain.process_frame(*frames[i])
     finally:
-        knn.query_tiled_sorted = kernel_path
+        pr.radius_moments_sorted = kernel_path
     pq, pt = plain.trajectory
-    dt = float(np.max(np.linalg.norm(pt - t_est[:PLAIN_FRAMES], axis=1)))
-    dr = float(np.max(rotation_angle(pq, q_est[:PLAIN_FRAMES])))
+    dt = float(np.max(np.linalg.norm(pt - rad["t"][:PLAIN_FRAMES], axis=1)))
+    dr = float(np.max(rotation_angle(pq, rad["q"][:PLAIN_FRAMES])))
     log(f"  max pose difference: {dt:.3e} m, {dr:.3e} rad")
-    check(dt <= POSE_TOL_M and dr <= POSE_TOL_RAD, f"plain-kNN poses differ: {dt} m, {dr} rad")
+    check(dt <= POSE_TOL_M and dr <= POSE_TOL_RAD, f"plain-PCA poses differ: {dt} m, {dr} rad")
 
-    log("== phase 6: times (CUDA events, %d repeats)" % REPEATS)
-    per_shape = {}
-    for kind, (tmap, q, bounds, params) in inputs.items():
-        nt, tc, tcap = params
-        ms = time_cuda(lambda: knn._query_tiled_sorted_cuda(tmap, q, bounds, nt, tc, tcap, 5))
-        plain_ms = time_cuda(lambda: knn.query_tiled_sorted_plain(tmap, q, bounds, nt, tc, tcap, 5))
-        mx = tmap.xyz[tmap.valid]
-        yard_ms = time_cuda(lambda: torch.topk(torch.cdist(q, mx), 5, dim=1, largest=False))
-        bound_ms, bound_by, pairs, nbytes = knn_bound(knn, tmap, q, bounds, params)
-        per_shape[kind] = dict(
-            queries=q.shape[0], map_points=int(mx.shape[0]), ms=ms, plain_ms=plain_ms,
-            cdist_topk_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, bytes=nbytes,
-        )
-        log(f"  {kind}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  cdist+topk (whole map, yardstick) {yard_ms:.4f} ms  "
-            f"bound {bound_ms:.5f} ms ({bound_by}; {pairs:.0f} pairs, {nbytes} bytes)")
-    tot = {k: sum(s[k] for s in per_shape.values()) for k in ("ms", "plain_ms", "bound_ms", "cdist_topk_ms")}
-    t_bytes = sum(s["bytes"] for s in per_shape.values()) / HBM_BYTES_PER_S * 1e3
+    phase("phase 15: PCA times (CUDA events; kernel %d repeats, plain %d)" % (REPEATS, PLAIN_REPEATS))
+    radius = cfg_rad.pca.neighbor_radius
+    qs = knn.sort_queries(xyz_l, ng, tmap_l.origin, nt, tc)
+    sq = xyz_l[qs.order].contiguous()
+    pca_ms = time_cuda(lambda: pr._radius_moments_sorted_cuda(tmap_l, sq, qs.bounds, nt, tc, tcap, radius))
+    pca_plain_ms = time_cuda(lambda: pr.radius_moments_sorted_plain(tmap_l, sq, qs.bounds, nt, tc, tcap, radius), PLAIN_REPEATS)
+    fn_ms = time_cuda(lambda: pr.radius_pca_moments(tmap_l, xyz_l, ng, nt, tc, tcap))
+    cloud = xyz_l[ng]
+    x, y, z = cloud[:, 0], cloud[:, 1], cloud[:, 2]
+    feats = torch.stack([torch.ones_like(x), x, y, z, x * x, y * y, z * z, x * y, x * z, y * z], -1)
+    pca_yard_ms = time_cuda(lambda: (torch.cdist(cloud, cloud) < radius).float() @ feats, 10)
+    pca_bound_ms, pca_bound_by, pca_pairs, pca_bytes = pca_bound(knn, tmap_l, xyz_l, ng, (nt, tc, tcap), hits)
+    log(f"  kernel (wrapper on sorted queries) {pca_ms:.4f} ms  plain {pca_plain_ms:.4f} ms  "
+        f"bound {pca_bound_ms:.5f} ms ({pca_bound_by}; {pca_pairs:.0f} pairs, {hits:.0f} in-ball, {pca_bytes} bytes)")
+    log(f"  radius_pca_moments (sort, kernel, finish) {fn_ms:.4f} ms  "
+        f"(cdist < r) @ F over {cloud.shape[0]} points (yardstick) {pca_yard_ms:.4f} ms")
 
-    log("== phase 7: where a frame's time goes (torch.profiler, %d steady frames)" % PROFILE_FRAMES)
-    profile_steady_frames(cfg, frames, ESPipeline)
+    phase("phase 16: where a radius-BPF frame's time goes (torch.profiler, %d steady frames)" % PROFILE_FRAMES)
+    profile_steady_frames(
+        lambda: make_pipeline(cfg_rad, sync=False, fetch_lag=4),
+        frames,
+        [
+            (bpf_frontend, "run_frontend"),
+            (ground, "segment_ground_dispatch"),
+            (dcvc, "cluster"),
+            (pr, "radius_pca_moments"),
+            (pca_classify, "classify"),
+            (bpf_odometry, "_bpf_outer_assoc_once"),
+            (pose_graph, "smoothed_newest"),
+            (map_state, "merge_scan_into_index"),
+        ],
+        check_syncs=True,
+    )
     log(f"  total wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {
@@ -404,16 +707,36 @@ def main() -> int:
                 "route": "cuda",
                 "source": "pfilter_tpu_torch/csrc/knn_tiled.cu",
                 "replaces": "pfilter_tpu/ops/knn_tiled.py:174",
-                "launches": launches,
-                "max_abs_err": max_err,
-                "ms": tot["ms"],
-                "plain_ms": tot["plain_ms"],
-                "bound_ms": tot["bound_ms"],
-                "bound_by": "bytes" if t_bytes >= tot["bound_ms"] else "operations",
+                "launches": launches["es"]["knn_tiled"],
+                "max_abs_err": knn_err,
+                "ms": knn_tot["es"]["ms"],
+                "plain_ms": knn_tot["es"]["plain_ms"],
+                "bound_ms": knn_tot["es"]["bound_ms"],
+                "bound_by": knn_tot["es"]["bound_by"],
                 "library_ms": None,
-                "yardstick_cdist_topk_ms": tot["cdist_topk_ms"],
+                "yardstick_cdist_topk_ms": knn_tot["es"]["cdist_topk_ms"],
+                "launches_by_path": {k: v["knn_tiled"] for k, v in launches.items()},
+                "per_path_frame": knn_tot,
                 "per_frame_shapes": per_shape,
-            }
+            },
+            {
+                "name": "pca_radius",
+                "route": "cuda",
+                "source": "pfilter_tpu_torch/csrc/pca_radius.cu",
+                "replaces": "pfilter_tpu/ops/pca_radius.py:54",
+                "launches": launches["bpf_radius"]["pca_radius"],
+                "max_abs_err": pca_err,
+                "ms": pca_ms,
+                "plain_ms": pca_plain_ms,
+                "bound_ms": pca_bound_ms,
+                "bound_by": pca_bound_by,
+                "library_ms": None,
+                "moments_fn_ms": fn_ms,
+                "yardstick_cdist_matmul_ms": pca_yard_ms,
+                "launches_by_path": {k: v["pca_radius"] for k, v in launches.items()},
+                "pairs": pca_pairs,
+                "in_ball": hits,
+            },
         ]
     }
     print(json.dumps(kernels), flush=True)

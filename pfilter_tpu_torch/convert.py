@@ -6,8 +6,10 @@ nested numpy arrays, for example ``jax.device_get(state)`` — into the port's
 edge/surf ``TiledMap`` fields, pose, last pose, ``opt_count`` and the
 pose-graph window.  This is the system's counterpart of carrying weights
 across.  :func:`state_to_numpy` goes the other way (nested dicts of numpy
-arrays, which :func:`state_from_jax_numpy` also accepts).  Nothing here
-imports the reference package: its state is read by field name.
+arrays, which :func:`state_from_jax_numpy` also accepts).
+:func:`bpf_state_from_jax_numpy` and :func:`bpf_state_to_numpy` do the same
+for a ``BPFState`` (beam, pillar and facade maps).  Nothing here imports the
+reference package: its state is read by field name.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from pfilter_tpu_torch import resolve_device
+from pfilter_tpu_torch.models.bpf_odometry import BPFState
 from pfilter_tpu_torch.models.es_odometry import ESState
 from pfilter_tpu_torch.ops import knn_tiled, se3
 
@@ -39,12 +42,10 @@ def _pose(p, device) -> se3.Pose:
     return se3.Pose(q=_tensor(_get(p, "q"), device), t=_tensor(_get(p, "t"), device))
 
 
-def state_from_jax_numpy(tree, device=None) -> ESState:
-    """The port's ESState from the reference package's (numpy leaves)."""
+def _from(cls, tree, map_names, device):
     device = resolve_device(device)
-    return ESState(
-        edge_map=_map(_get(tree, "edge_map"), device),
-        surf_map=_map(_get(tree, "surf_map"), device),
+    return cls(
+        **{m: _map(_get(tree, m), device) for m in map_names},
         pose=_pose(_get(tree, "pose"), device),
         last_pose=_pose(_get(tree, "last_pose"), device),
         opt_count=int(np.asarray(_get(tree, "opt_count"))),
@@ -55,20 +56,42 @@ def state_from_jax_numpy(tree, device=None) -> ESState:
     )
 
 
-def state_to_numpy(state: ESState) -> dict:
-    """Nested dicts of numpy arrays with the reference package's field names."""
-
+def _to_numpy(state, map_names) -> dict:
     def np_(x):
         return x.detach().cpu().numpy()
 
-    return {
-        "edge_map": {f: np_(getattr(state.edge_map, f)) for f in _MAP_FIELDS},
-        "surf_map": {f: np_(getattr(state.surf_map, f)) for f in _MAP_FIELDS},
-        "pose": {"q": np_(state.pose.q), "t": np_(state.pose.t)},
-        "last_pose": {"q": np_(state.last_pose.q), "t": np_(state.last_pose.t)},
-        "opt_count": np.int32(state.opt_count),
-        "pg_q": np_(state.pg_q),
-        "pg_t": np_(state.pg_t),
-        "pg_h": np_(state.pg_h),
-        "pg_valid": np_(state.pg_valid),
-    }
+    out = {m: {f: np_(getattr(getattr(state, m), f)) for f in _MAP_FIELDS} for m in map_names}
+    out.update(
+        pose={"q": np_(state.pose.q), "t": np_(state.pose.t)},
+        last_pose={"q": np_(state.last_pose.q), "t": np_(state.last_pose.t)},
+        opt_count=np.int32(state.opt_count),
+        pg_q=np_(state.pg_q),
+        pg_t=np_(state.pg_t),
+        pg_h=np_(state.pg_h),
+        pg_valid=np_(state.pg_valid),
+    )
+    return out
+
+
+_ES_MAPS = ("edge_map", "surf_map")
+_BPF_MAPS = ("beam_map", "pillar_map", "facade_map")
+
+
+def state_from_jax_numpy(tree, device=None) -> ESState:
+    """The port's ESState from the reference package's (numpy leaves)."""
+    return _from(ESState, tree, _ES_MAPS, device)
+
+
+def state_to_numpy(state: ESState) -> dict:
+    """Nested dicts of numpy arrays with the reference package's field names."""
+    return _to_numpy(state, _ES_MAPS)
+
+
+def bpf_state_from_jax_numpy(tree, device=None) -> BPFState:
+    """The port's BPFState from the reference package's (numpy leaves)."""
+    return _from(BPFState, tree, _BPF_MAPS, device)
+
+
+def bpf_state_to_numpy(state: BPFState) -> dict:
+    """Nested dicts of numpy arrays with the reference package's field names."""
+    return _to_numpy(state, _BPF_MAPS)

@@ -1,0 +1,267 @@
+"""BPF (beam + pillar + facade) scan-to-map odometry.
+
+Port of the ``assoc_once=True`` path of ``pfilter_tpu/models/bpf_odometry.py``
+(ref ``Odom_BPF_EstimationClass``, src/odomEstimationClass.cpp:649-1306).
+The skeleton is the ES step's (``models/es_odometry.py``) with three feature
+maps: beam and pillar use the point-to-line cost, facade the point-to-plane
+cost (ref :736-738); each map keeps its own persistence counters, rgbds
+re-voxelization (facade at 2x leaf, ref :1262-1264) and eviction/aging.
+``merged_map`` mirrors ``mergeFeatures`` (ref :1297-1306).
+
+As in the ES port, ``opt_count`` is a Python int (a function of the frame
+index) and the outer loop a Python loop; the device-valued map-size gate
+(ref :722, beam > 10 and pillar > 10 and facade > 50) selects between the
+loop's result and the zero-iteration result with ``torch.where``, so the step
+never waits on the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pfilter_tpu_torch.config import PipelineConfig
+from pfilter_tpu_torch.models import map_state
+from pfilter_tpu_torch.models.es_odometry import _associate_static, _compact_idx, _regate, _reorder, _weights_from
+from pfilter_tpu_torch.ops import gauss_newton as gn
+from pfilter_tpu_torch.ops import knn_tiled, pose_graph, se3, voxel
+
+CHANNELS = ("beam", "pillar", "facade")
+
+
+class BPFState(NamedTuple):
+    beam_map: knn_tiled.TiledMap
+    pillar_map: knn_tiled.TiledMap
+    facade_map: knn_tiled.TiledMap
+    pose: se3.Pose
+    last_pose: se3.Pose
+    opt_count: int  # outer iterations of the last frame (a function of the frame index)
+    pg_q: torch.Tensor  # [K,4] pose-graph window (ops/pose_graph.py)
+    pg_t: torch.Tensor  # [K,3]
+    pg_h: torch.Tensor  # [K,6,6]
+    pg_valid: torch.Tensor  # [K]
+
+
+class BPFDiag(NamedTuple):
+    n_corr: torch.Tensor  # [3] per-channel correspondence counts
+    map_sizes: torch.Tensor  # [3]
+    dropped: torch.Tensor  # device-side corrupt-frame guard fired
+    # [3, 4] int32 per-channel overflow counters:
+    # [compact_over, ds_voxel_over, merge_voxel_over, tile_cap_over]
+    overflow: torch.Tensor
+
+
+def init_state(cfg: PipelineConfig, device=None) -> BPFState:
+    k = cfg.pose_graph.window
+    maps = {kind: map_state.empty_index(cfg, kind, device=device) for kind in CHANNELS}
+    return BPFState(
+        beam_map=maps["beam"],
+        pillar_map=maps["pillar"],
+        facade_map=maps["facade"],
+        pose=se3.identity_pose(device),
+        last_pose=se3.identity_pose(device),
+        opt_count=cfg.odometry.max_outer_iters,
+        pg_q=torch.tensor([1.0, 0, 0, 0], device=device).repeat(k, 1),
+        pg_t=torch.zeros((k, 3), dtype=torch.float32, device=device),
+        pg_h=torch.zeros((k, 6, 6), dtype=torch.float32, device=device),
+        pg_valid=torch.zeros(k, dtype=torch.bool, device=device),
+    )
+
+
+def _leaf(cfg: PipelineConfig, kind: str) -> float:
+    # beam/pillar at map_resolution, facade at 2x (ref: :658-660, :1262-1264).
+    return cfg.odometry.map_resolution * (2.0 if kind == "facade" else 1.0)
+
+
+def _compact_cap(cfg: PipelineConfig, kind: str) -> int:
+    cap = cfg.capacity
+    return cap.edge_points if map_state.is_line_kind(kind) else (cap.bpf_plane_points or cap.surf_points)
+
+
+def first_frame(state: BPFState, xyz, masks, cfg: PipelineConfig) -> BPFState:
+    """Seed the three maps with the first scan's classified features (ref
+    ``initMapWithPoints``, src/odomEstimationClass.cpp:689-695), rgbds-voxelized
+    at the channel leaf first, as the reference package does (a raw dense seed
+    would overflow near-sensor kNN tiles for one frame)."""
+    new_maps = {}
+    for kind in CHANNELS:
+        comp_cap = _compact_cap(cfg, kind)
+        cxyz, cvalid, _ = _compact_idx(xyz, masks[kind], comp_cap)
+        seed = voxel.voxel_downsample_rgbds(
+            voxel.PointSet(cxyz, torch.zeros((comp_cap, 2), dtype=torch.float32, device=xyz.device), cvalid),
+            _leaf(cfg, kind),
+            map_state.map_capacity(cfg, kind),
+        )
+        new_maps[kind] = map_state.build_index(seed.xyz, seed.rg, seed.valid, state.pose.t, cfg, kind)
+    return state._replace(
+        beam_map=new_maps["beam"],
+        pillar_map=new_maps["pillar"],
+        facade_map=new_maps["facade"],
+        opt_count=cfg.odometry.max_outer_iters,
+    )
+
+
+def _bpf_outer_assoc_once(cfg, opt_count: int, enough, pose0, center, grids, ds, bounds):
+    """Hoisted-association outer loop over three channels: one kNN, gather,
+    fit and persistence pass per channel per frame; iterations re-gate the
+    cached neighbours and re-run GN (see es_odometry._es_outer_assoc_once for
+    the counter semantics).  ``enough`` selects the loop's result or the
+    zero-iteration result."""
+    o = cfg.odometry
+    k = cfg.capacity.knn_k
+    dev = center.device
+    st = {
+        kind: _associate_static(kind, grids[kind], grids[kind].rg, pose0, center, ds[kind].xyz, ds[kind].valid, cfg, bounds[kind])
+        for kind in CHANNELS
+    }
+    zeros = {kind: torch.zeros(ds[kind].xyz.shape[0], dtype=torch.bool, device=dev) for kind in CHANNELS}
+    m0s, matches, vcs = dict(zeros), dict(zeros), dict(zeros)
+    pose_l = pose0
+    h = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+    for it in range(opt_count):
+        gate_sq = o.nn_gate_wide_sq if it == 0 else o.nn_gate_sq
+        for kind in CHANNELS:
+            matches[kind], vcs[kind] = _regate(st[kind], pose_l, ds[kind].xyz, gate_sq)
+        if it == 0:
+            m0s = dict(matches)
+        factors = [
+            gn.Correspondences(
+                "edge" if map_state.is_line_kind(kind) else "surf",
+                ds[kind].xyz,
+                st[kind].geom_a,
+                st[kind].geom_b,
+                _weights_from(st[kind].observe, st[kind].sparsity, vcs[kind], o.weight_type),
+                vcs[kind],
+            )
+            for kind in CHANNELS
+        ]
+        for _ in range(o.inner_gn_iters):
+            pose_l, (h, _b) = gn.gn_iteration(pose_l, factors, o.huber_delta, o.gn_damping)
+
+    q = torch.where(enough, pose_l.q, pose0.q)
+    t_l = torch.where(enough, pose_l.t, pose0.t)
+    h_fin = torch.where(enough, h, torch.zeros_like(h))
+    scale_rest = float(max(opt_count - 1, 0))
+    rgs, scan_rgs, counts = [], [], []
+    for kind in CHANNELS:
+        m0, m_fin, vc = m0s[kind] & enough, matches[kind] & enough, vcs[kind] & enough
+        w = m0.to(torch.float32) + scale_rest * m_fin.to(torch.float32)
+        grid_rg = grids[kind].rg
+        inc = torch.zeros(grid_rg.shape[0], dtype=torch.float32, device=dev)
+        inc.index_put_((st[kind].nn_idx.reshape(-1).long(),), w.repeat_interleave(k), accumulate=True)
+        rg = grid_rg.clone()
+        rg[:, 1] = torch.clamp(grid_rg[:, 1] + inc, max=o.counter_cap)
+        rgs.append(rg)
+        new_rg = torch.stack(
+            [
+                torch.clamp(torch.floor(st[kind].round_), max=o.counter_cap),
+                torch.clamp(torch.floor(st[kind].observe), max=o.counter_cap),
+            ],
+            -1,
+        )
+        vc_union = (m0 & st[kind].pers_ok) | vc
+        scan_rgs.append(torch.where(vc_union[:, None], new_rg, ds[kind].rg))
+        counts.append(vc.sum())
+    return q, t_l, h_fin, rgs, scan_rgs, torch.stack(counts)
+
+
+def bpf_step(state: BPFState, xyz, masks, cfg: PipelineConfig):
+    """One BPF odometry frame (ref ``updatePointsToMap``,
+    src/odomEstimationClass.cpp:702-760).  ``masks`` maps channel name ->
+    boolean mask over ``xyz``.  Returns (new_state, BPFDiag)."""
+    o, cap = cfg.odometry, cfg.capacity
+    if not o.assoc_once:
+        raise NotImplementedError("assoc_once=False is not ported yet (ROADMAP.md Queue 1 #15)")
+    dev = state.pose.t.device
+
+    opt_count = max(o.min_outer_iters, state.opt_count - 1)
+    pred = se3.constant_velocity_predict(state.pose, state.last_pose)
+    last_pose = state.pose
+    grids = {"beam": state.beam_map, "pillar": state.pillar_map, "facade": state.facade_map}
+
+    ds, over_compact, over_ds = {}, {}, {}
+    for kind in CHANNELS:
+        line = map_state.is_line_kind(kind)
+        comp_cap = _compact_cap(cfg, kind)
+        ds_cap = cap.ds_edge_points if line else cap.ds_surf_points
+        cxyz, cvalid, _ = _compact_idx(xyz, masks[kind], comp_cap)
+        over_compact[kind] = torch.clamp(masks[kind].sum() - comp_cap, min=0)
+        ds[kind], over_ds[kind] = voxel.voxel_downsample_rgbds_counted(
+            voxel.PointSet(cxyz, torch.zeros((comp_cap, 2), dtype=torch.float32, device=dev), cvalid),
+            _leaf(cfg, kind),
+            ds_cap,
+        )
+
+    center = pred.t
+    pose0 = se3.Pose(q=pred.q, t=torch.zeros(3, dtype=torch.float32, device=dev))
+
+    # Tile-sort each feature cloud once per frame at the predicted pose and
+    # keep everything downstream in sorted order.
+    bounds = {}
+    for kind in CHANNELS:
+        qs = map_state.sort_queries_for_index(grids[kind], se3.transform_points(pred, ds[kind].xyz), ds[kind].valid, cfg, kind)
+        ds[kind] = _reorder(ds[kind], qs.order)
+        bounds[kind] = qs.bounds
+
+    enough = (grids["beam"].valid.sum() > 10) & (grids["pillar"].valid.sum() > 10) & (grids["facade"].valid.sum() > 50)
+    q, t_l, h_fin, rgs, scan_rgs, counts = _bpf_outer_assoc_once(cfg, opt_count, enough, pose0, center, grids, ds, bounds)
+    pose = se3.Pose(q=q, t=t_l + center)
+
+    # Device-side corrupt-frame guard (as es_odometry.es_step).
+    finite = torch.isfinite(pose.q).all() & torch.isfinite(pose.t).all()
+    jump = torch.linalg.vector_norm(torch.where(finite, pose.t - state.pose.t, torch.zeros_like(pose.t)))
+    dropped = ~finite | (jump > o.max_jump_m)
+    pose = se3.Pose(q=torch.where(dropped, state.pose.q, pose.q), t=torch.where(dropped, state.pose.t, pose.t))
+    last_pose = se3.Pose(
+        q=torch.where(dropped, state.last_pose.q, last_pose.q),
+        t=torch.where(dropped, state.last_pose.t, last_pose.t),
+    )
+
+    # Pose-graph window + optional smoothing (see es_odometry.es_step).
+    pgc = cfg.pose_graph
+    h_anchor = torch.where(dropped, 1e-3 * torch.eye(6, dtype=torch.float32, device=dev), h_fin)
+    pg_q, pg_t, pg_h, pg_valid = pose_graph.push_window(state.pg_q, state.pg_t, state.pg_h, state.pg_valid, pose.q, pose.t, h_anchor)
+    if pgc.enabled:
+        pose = pose_graph.smoothed_newest(pg_q, pg_t, pg_h, pg_valid, pose, pgc)
+
+    new_maps, over_rows = {}, []
+    for i, kind in enumerate(CHANNELS):
+        world = se3.transform_points(pose, ds[kind].xyz)
+        new_maps[kind], over_merge = map_state.merge_scan_into_index(
+            grids[kind]._replace(rg=rgs[i]), world, scan_rgs[i], ds[kind].valid, pose.t, _leaf(cfg, kind), cfg, kind
+        )
+        over_rows.append(
+            torch.stack([over_compact[kind], over_ds[kind], over_merge, map_state.tile_overflow_count(new_maps[kind], cfg, kind)])
+        )
+
+    new_state = BPFState(
+        beam_map=new_maps["beam"],
+        pillar_map=new_maps["pillar"],
+        facade_map=new_maps["facade"],
+        pose=pose,
+        last_pose=last_pose,
+        opt_count=opt_count,
+        pg_q=pg_q,
+        pg_t=pg_t,
+        pg_h=pg_h,
+        pg_valid=pg_valid,
+    )
+    diag = BPFDiag(
+        n_corr=counts.to(torch.int32),
+        map_sizes=torch.stack([new_maps[k].valid.sum() for k in CHANNELS]).to(torch.int32),
+        dropped=dropped,
+        overflow=torch.stack(over_rows).to(torch.int32),
+    )
+    return new_state, diag
+
+
+def merged_map(state: BPFState) -> voxel.PointSet:
+    """Concatenated beam+pillar+facade map (ref ``mergeFeatures``,
+    src/odomEstimationClass.cpp:1297-1306)."""
+    maps = [state.beam_map, state.pillar_map, state.facade_map]
+    return voxel.PointSet(
+        xyz=torch.cat([m.xyz for m in maps]),
+        rg=torch.cat([m.rg for m in maps]),
+        valid=torch.cat([m.valid for m in maps]),
+    )

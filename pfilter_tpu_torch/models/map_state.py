@@ -107,18 +107,7 @@ def tile_overflow_count(index, cfg: PipelineConfig, kind: str) -> torch.Tensor:
     excess over every (query tile, halo row) pair — 0 means every kNN read
     was complete."""
     nt, _, tcap = _tile_params(cfg, kind)
-    w = 3 * tcap
-    ts = index.tile_start
-    tids = torch.arange(nt * nt, dtype=torch.int32, device=ts.device)
-    tx, ty = tids // nt, tids % nt
-    total = torch.zeros((), dtype=torch.int64, device=ts.device)
-    for dr in (-1, 0, 1):
-        row = torch.clamp(tx + dr, 0, nt - 1)
-        lo = row * nt + torch.clamp(ty - 1, 0, nt - 1)
-        hi = row * nt + torch.clamp(ty + 1, 0, nt - 1) + 1
-        ln = ts[hi.long()] - ts[lo.long()]
-        total = total + torch.clamp(ln - w, min=0).sum()
-    return total.to(torch.int32)
+    return knn_tiled.halo_overflow(index, nt, 3 * tcap)
 
 
 _FUSED_NZ = 1024  # z-voxel window (1024 * leaf meters, centered at the pose)

@@ -28,11 +28,12 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 # C functions of the library and their argument types (pointers and the
-# stream as void*, ints as int); ``load`` declares them, a test holds them
-# against the sources' signatures.
-VP, CI = ctypes.c_void_p, ctypes.c_int
+# stream as void*, ints as int, floats as float); ``load`` declares them, a
+# test holds them against the sources' signatures.
+VP, CI, CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "pf_knn_tiled": [VP, CI, VP, VP, VP, VP, CI, CI, CI, CI, VP, VP, VP],
+    "pf_pca_radius": [VP, CI, VP, VP, VP, VP, VP, CI, CI, CI, CF, CI, VP, VP],
 }
 
 _lib = None

@@ -143,6 +143,13 @@ def _halo_ranges(tmap: TiledMap, nt: int, w: int):
     return torch.stack(c_starts, -1), torch.stack(c_cnts, -1)
 
 
+def halo_overflow(tmap: TiledMap, nt: int, w: int) -> torch.Tensor:
+    """Slots beyond the cap ``w`` of each query tile's three halo rows, summed
+    over every (query tile, row) pair: 0 means every halo read is complete."""
+    _, cnt = _halo_ranges(tmap, nt, 2**31 - 1)
+    return torch.clamp(cnt - w, min=0).sum().to(torch.int32)
+
+
 def _check_inputs(tmap: TiledMap, sq_world: torch.Tensor, bounds: torch.Tensor, nt: int):
     if sq_world.dim() != 2 or sq_world.shape[1] != 3 or sq_world.dtype != torch.float32:
         raise ValueError(f"queries must be [Q,3] float32, got {tuple(sq_world.shape)} {sq_world.dtype}")

@@ -3,7 +3,8 @@ predicate.
 
 Port of ``pfilter_tpu/ops/voxel.py``:
 
-- :func:`voxel_downsample_rgbds_counted` replaces ``pcl::VoxelGrid`` (scan
+- :func:`voxel_downsample_rgbds_counted` (and :func:`voxel_downsample_rgbds`,
+  which drops the overflow count) replaces ``pcl::VoxelGrid`` (scan
   downsampling, ref: src/odomEstimationClass.cpp:176-180) and the ``rgbds``
   map re-voxelizer (ref: :34-134) — per-voxel centroid with per-voxel
   **max** of the persistence counters (r = age, g = observation count);
@@ -104,6 +105,11 @@ def voxel_downsample_rgbds_counted(points: PointSet, leaf: float, out_cap: int):
     n_dropped = torch.clamp(n_occupied - out_cap, min=0)
     centroid, rg, occupied, _ = segment_reduce_sorted(sxyz, srg, svalid, seg, out_cap)
     return PointSet(xyz=centroid, rg=rg, valid=occupied), n_dropped
+
+
+def voxel_downsample_rgbds(points: PointSet, leaf: float, out_cap: int) -> PointSet:
+    """See :func:`voxel_downsample_rgbds_counted`; drops the overflow count."""
+    return voxel_downsample_rgbds_counted(points, leaf, out_cap)[0]
 
 
 def persistence_keep(rg: torch.Tensor, k_new: float, theta_p: float, theta_max: float) -> torch.Tensor:

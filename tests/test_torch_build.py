@@ -22,17 +22,18 @@ def _c_signatures():
 
 
 def test_sources_and_declared_signatures_agree():
-    assert [s.name for s in _build.sources()] == ["knn_tiled.cu"]
+    assert [s.name for s in _build.sources()] == ["knn_tiled.cu", "pca_radius.cu"]
     c = _c_signatures()
     assert set(c) == set(_build.SIGNATURES)
     for name, params in c.items():
         declared = _build.SIGNATURES[name]
         assert len(params) == len(declared), name
         for p, ct in zip(params, declared):
-            # Every pointer (and the stream) as void*, every int as int: a
-            # pointer passed as c_int would be cut to 32 bits.
+            # Every pointer (and the stream) as void*, every int as int, every
+            # float as float: a pointer passed as c_int would be cut to 32 bits.
             assert (ct is ctypes.c_void_p) == p.endswith("*"), (name, p)
             assert (ct is ctypes.c_int) == (p in ("int", "const int")), (name, p)
+            assert (ct is ctypes.c_float) == (p in ("float", "const float")), (name, p)
 
 
 def test_build_key_follows_sources(tmp_path):
@@ -60,4 +61,5 @@ def test_build_and_load_on_card():
         pytest.skip("needs a CUDA card and nvcc: the kernels are built for sm_90a only there")
     lib = _build.load()
     assert lib.pf_knn_tiled.restype is ctypes.c_int
+    assert lib.pf_pca_radius.restype is ctypes.c_int
     assert Path(_build.BUILD_INFO["path"]).is_file()

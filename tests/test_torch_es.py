@@ -10,6 +10,8 @@ compiled and eager executions of the same first step already differ by
 2 % for the same reason (a correspondence flipped at a gate changes which
 voxels survive eviction)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,7 @@ from pfilter_tpu.utils import metrics, synthetic
 from pfilter_tpu_torch import convert
 from pfilter_tpu_torch.models import es_odometry as tes
 from pfilter_tpu_torch.ops import features as tfeat
-from pfilter_tpu_torch.pipeline import ESPipeline, make_pipeline
+from pfilter_tpu_torch.pipeline import BPFPipeline, ESPipeline, make_pipeline
 from pfilter_tpu_torch.utils import synthetic as tsyn
 from torch_parity import n, rotation_angle, t, tiny_config
 
@@ -158,14 +160,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(runs, monkeypatch):
 
 def test_unported_options_raise(runs):
     tcfg = runs["tcfg"]
+    # The BPF slice and the ES pre-filters are ported; fast ground is not.
+    assert isinstance(make_pipeline(tcfg.replace(mode="bpf"), device="cpu"), BPFPipeline)
+    fast = tcfg.replace(es_ground_filter=True, ground=dataclasses.replace(tcfg.ground, method="fast"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_pipeline(tcfg.replace(mode="bpf"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ESPipeline(tcfg.replace(es_ground_filter=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ESPipeline(tcfg.replace(es_curved_filter=True), device="cpu")
+        ESPipeline(fast, device="cpu").process_frame(runs["xyz"][0], runs["valid"][0])
     assert isinstance(make_pipeline(tcfg, device="cpu"), ESPipeline)
-    import dataclasses
 
     per_iter = tcfg.replace(odometry=dataclasses.replace(tcfg.odometry, assoc_once=False))
     pipe = ESPipeline(per_iter, device="cpu")
