@@ -12,22 +12,34 @@ v1 protocol of ``bench.py`` (``make_city_world(seed=7)``,
 count set to 0 just before it and read just after, and checks them:
 
 1. device: the card's name and power limit; TF32 off;
-2. build: compiles ``pfilter_tpu_torch/csrc/*.cu`` with nvcc;
+2. build: compiles ``pfilter_tpu_torch/csrc/*.cu`` with nvcc (ptxas
+   registers, shared memory and spills), and times an empty kernel: the
+   card's launch floor, eager and inside a CUDA graph;
 3. ES odometry (``mode="es"``): fps, drift, ATE, overflow, kNN launches
    (= 2 x (frames - 1)), drift below the reference's 0.783 %;
 4. the kNN kernel against its plain version on that run's edge and surf
-   maps and queries, and on edge cases (empty tiles, a halo row over the
-   cap, invalid queries, clipped border tiles);
+   maps and queries, on edge cases (empty tiles, a halo row over the cap,
+   invalid queries, clipped border tiles) and on duplicate map points (equal
+   distances on the same and on different lanes of a query; and in the
+   window's first and last tile rows, where a halo reads a row twice and a
+   slot ties with itself): distances and indices identical; two launches on the same inputs bitwise equal; and
+   at every kernel comparison below too, the work-list kernel that both
+   kernels' wrappers launch (``csrc/work_list.cu``) equal to its plain
+   version, item for item, with its launches equal to the kNN's plus the
+   PCA kernel's on every path;
 5. the first 20 ES frames again with the plain kNN: poses must match;
-6. CUDA-event times of the kNN kernel, its plain version and (a yardstick
-   only) ``torch.cdist`` + ``torch.topk`` over the whole map;
+6. times of the kNN kernel: ``device_ms``, the replay of a CUDA graph of
+   REPEATS wrapper calls (the card's time alone), and ``call_ms``, CUDA
+   events around REPEATS eager calls (host enqueue included); CUDA-event
+   times of its plain version and (a yardstick only) ``torch.cdist`` +
+   ``torch.topk`` over the whole map;
 7. where a steady ES frame's time goes (torch.profiler) and which calls
    synchronise the host while a frame is dispatched;
 8. BPF odometry with the default voxel front-end (``mode="bpf"``): fps,
    drift, ATE, overflow, kNN launches (= 3 x (frames - 1)), drift < 0.783 %;
 9. the kNN kernel against its plain version on that run's beam, pillar and
-   facade maps and queries (tile caps 128, 128, 256), and their CUDA-event
-   times and bounds;
+   facade maps and queries (tile caps 128, 128, 256), and their times (as
+   in 6) and bounds;
 10. the first 20 default-BPF frames again with the plain kNN: poses within
     1 mm / 1e-4 rad;
 11. BPF with the radius front-end (``pca.impl=radius``,
@@ -36,14 +48,18 @@ count set to 0 just before it and read just after, and checks them:
 12. the kNN kernel against its plain version on that run's three channels,
     and their times and bounds;
 13. the widest halo row of any frame against the cap, and the PCA moment
-    kernel against its plain version at that run's last-frame shapes and on
-    edge cases (the same scan at tile cap 384, invalid
-    queries, empty tiles, clipped border tiles): counts exact, means within
-    1e-4 m, covariances within 1e-3 m^2 per neighbour;
+    kernel against its plain version at that run's last-frame shapes, on
+    edge cases (the same scan at tile cap 384, invalid queries, empty tiles,
+    clipped border tiles) and on candidates at r (1 +- 1e-6) from queries on
+    the corners of a work item's bounding box: counts exact, means within
+    1e-4 m, covariances within 1e-3 m^2 per neighbour; two launches on the
+    same inputs bitwise equal;
 14. the first 20 radius-BPF frames again with the plain PCA: poses within
     1 mm / 1e-4 rad;
-15. CUDA-event times of the PCA kernel, its plain version and (a yardstick
-    only) ``(torch.cdist(q, c) < r).float() @ F`` over the whole cloud;
+15. the PCA kernel's ``device_ms`` and ``call_ms``, its plain version and (a
+    yardstick only) ``(torch.cdist(q, c) < r).float() @ F`` over the whole
+    cloud; the bound from the in-ball pairs, beside the all-halo-pairs bound
+    of earlier runs (``bound_halo_ms``);
 16. where a steady radius-BPF frame's time goes, and its host syncs (= 0).
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
@@ -78,6 +94,7 @@ PLAIN_FRAMES = 20
 POSE_TOL_M = 1e-3
 POSE_TOL_RAD = 1e-4
 REPEATS = 50
+GRAPH_REPLAYS = 5  # replays of a captured graph of REPEATS calls, timed together
 PROFILE_FRAMES = 1  # the profiler and its trace processing cost ~15-30 s per profiled frame
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
@@ -188,8 +205,12 @@ def bpf_frame_queries(cfg, state, xyz, valid):
 
 
 def compare(knn, tmap, q, bounds, params, name):
+    """Kernel against plain on the same inputs: distances and indices
+    identical (ties go to the lower slot in both), and a second launch
+    bitwise equal to the first."""
     nt, tc, tcap = params
     rk = knn._query_tiled_sorted_cuda(tmap, q, bounds, nt, tc, tcap, 5)
+    rk2 = knn._query_tiled_sorted_cuda(tmap, q, bounds, nt, tc, tcap, 5)
     rp = knn.query_tiled_sorted_plain(tmap, q, bounds, nt, tc, tcap, 5)
     torch.cuda.synchronize()
     dk, dp = rk.sqdist.cpu().numpy(), rp.sqdist.cpu().numpy()
@@ -197,15 +218,78 @@ def compare(knn, tmap, q, bounds, params, name):
     check(np.array_equal(np.isfinite(dk), np.isfinite(dp)), f"{name}: finite pattern differs")
     fin = np.isfinite(dk)
     err = float(np.max(np.abs(dk[fin] - dp[fin]))) if fin.any() else 0.0
-    rel_ok = np.all(np.abs(dk[fin] - dp[fin]) <= 1e-6 * np.abs(dp[fin]))
-    check(rel_ok, f"{name}: sqdist differs beyond rtol 1e-6 (max abs {err})")
-    xt = tmap.xyz_t[:3].T.cpu().numpy()
-    diff = ik != ip
-    ties_ok = np.all(np.all(xt[ik[diff]] == xt[ip[diff]], axis=-1)) if diff.any() else True
-    check(ties_ok, f"{name}: {int(diff.sum())} indices differ at distinct coordinates")
+    mismatch = int((ik != ip).sum())
+    check(np.array_equal(dk, dp), f"{name}: sqdist differs (max abs {err})")
+    check(mismatch == 0, f"{name}: {mismatch} indices differ")
+    same = torch.equal(rk.sqdist, rk2.sqdist) and torch.equal(rk.idx, rk2.idx)
+    check(same, f"{name}: two launches on the same inputs differ")
+    n_items = compare_work_list(knn, bounds, nt, knn.CHUNK, q.shape[0], name)
     log(f"  {name}: Q={q.shape[0]} valid={int(bounds[nt * nt])} map={int(tmap.tile_start[nt * nt])} tile_cap={tcap} "
-        f"finite={int(fin.sum())} idx_mismatch={int(diff.sum())} max_abs_err={err:.3e}")
+        f"items={n_items} finite={int(fin.sum())} idx_mismatch={mismatch} max_abs_err={err:.3e} run_to_run_equal={same}")
     return err
+
+
+def compare_work_list(knn, bounds, nt, chunk, n_q, name):
+    """The work-list kernel against its plain version: the same item count
+    and the same items, row for row."""
+    wk = knn.work_list(bounds, nt, chunk, n_q).cpu()
+    wp = knn.work_list_plain(bounds.cpu(), nt, chunk, n_q)
+    n_items = int(wp[0, 0])
+    check(wk.shape == wp.shape and torch.equal(wk[: 1 + n_items, :3], wp[: 1 + n_items, :3]), f"{name}: work lists differ")
+    return n_items
+
+
+def duplicate_inputs(knn, dev, params):
+    """A map of 300 points each stored 12 times in consecutive slots (equal
+    distances on the same lane of a query and on different lanes) and once
+    more at the map's end (another halo position), with a sparse
+    background; the queries are the points themselves (distance 0, twelve
+    or more ways tied), points 1 cm off, and random points around them."""
+    nt, tc, tcap = params
+    g = np.random.default_rng(9)
+    base = g.uniform(-6.0, 6.0, (300, 3)).astype(np.float32)
+    pts = np.concatenate([np.repeat(base, 12, 0), g.uniform(-40.0, 40.0, (1000, 3)).astype(np.float32), base])
+    cap = pts.shape[0] + 256
+    xyz = torch.zeros((cap, 3), device=dev)
+    xyz[: pts.shape[0]] = torch.from_numpy(pts).to(dev)
+    valid = torch.arange(cap, device=dev) < pts.shape[0]
+    origin = knn.tile_origin_for_pose(torch.zeros(3, device=dev), nt, tc)
+    tmap = knn.build_tiled(xyz, torch.zeros((cap, 2), device=dev), valid, origin, nt, tc, tcap)
+    q = np.concatenate([base, base + np.float32(0.01), g.uniform(-8.0, 8.0, (600, 3)).astype(np.float32)])
+    qt = torch.from_numpy(q).to(dev)
+    qs = knn.sort_queries(qt, torch.ones(q.shape[0], dtype=torch.bool, device=dev), origin, nt, tc)
+    return tmap, qt[qs.order].contiguous(), qs.bounds
+
+
+def border_duplicate_inputs(knn, dev, params, row):
+    """Query tiles in the window's first (``row=0``) or last tile row, whose
+    halo reads that row twice, so a slot ties with itself: tile ids are not
+    moved off the border ring (as ``build_tiled`` and ``sort_queries`` do).
+    200 points stored 6 times in consecutive slots in that row, a sparse
+    background, and as queries the points, points 1 cm off and random points
+    in the row."""
+    nt, tc, tcap = params
+    g = np.random.default_rng(17 + row)
+    origin = knn.tile_origin_for_pose(torch.zeros(3, device=dev), nt, tc)
+    x0 = float(origin[0]) + row * tc
+    lo, hi = [x0 + 0.05, -20.0, -2.0], [x0 + tc - 0.05, 20.0, 2.0]
+    base = g.uniform(lo, hi, (200, 3)).astype(np.float32)
+    span = nt * tc / 2.0 - 0.1
+    pts = np.concatenate([np.repeat(base, 6, 0), g.uniform(-span, span, (4000, 3)).astype(np.float32)])
+    q = np.concatenate([base, base + np.float32(0.01), g.uniform(lo, hi, (800, 3)).astype(np.float32)])
+
+    def tiles(xyz):
+        c = torch.clamp(torch.floor((xyz[:, :2] - origin[:2]) / float(tc)).to(torch.int32), 0, nt - 1)
+        return c[:, 0] * nt + c[:, 1]
+
+    x = torch.from_numpy(pts).to(dev)
+    sx = x[torch.argsort(tiles(x), stable=True)]
+    sv = torch.ones(sx.shape[0], dtype=torch.bool, device=dev)
+    tmap = knn.TiledMap(xyz=sx, rg=torch.zeros((sx.shape[0], 2), device=dev), valid=sv,
+                        xyz_t=knn.transposed_coords(sx, sv, tcap), tile_start=knn._tile_range(tiles(sx), nt), origin=origin)
+    qt = torch.from_numpy(q).to(dev)
+    sq = qt[torch.argsort(tiles(qt), stable=True)].contiguous()
+    return tmap, sq, knn._tile_range(tiles(sq), nt)
 
 
 def edge_case_inputs(knn, dev, params):
@@ -234,6 +318,9 @@ def edge_case_inputs(knn, dev, params):
 
 
 def time_cuda(fn, repeats=REPEATS):
+    """``call_ms``: CUDA events around ``repeats`` eager calls, per call. The
+    host's work between launches (checks, allocation, the ctypes call) is in
+    it wherever it takes longer than the kernel."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -245,6 +332,42 @@ def time_cuda(fn, repeats=REPEATS):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / repeats
+
+
+def graph_ms(fn, repeats=REPEATS):
+    """``device_ms``: one CUDA graph captures ``repeats`` calls, and CUDA
+    events time GRAPH_REPLAYS replays of it, per call: the card's time alone,
+    the device work of the wrapper (its allocations and small tensor ops)
+    included, the host's not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(repeats):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / (GRAPH_REPLAYS * repeats)
+    del graph
+    return ms
+
+
+def launch_floor():
+    """The card's floor for one kernel: an empty kernel (``torch.cuda._sleep(0)``)
+    in a CUDA graph (``device_ms``) and launched eagerly (``call_ms``)."""
+    return graph_ms(lambda: torch.cuda._sleep(0)), time_cuda(lambda: torch.cuda._sleep(0))
 
 
 def knn_bound(knn, tmap, q, bounds, params):
@@ -265,29 +388,34 @@ def knn_bound(knn, tmap, q, bounds, params):
 
 
 def time_knn(knn, inputs, label):
-    """CUDA-event times of the kNN kernel, its plain version and the
+    """Times of the kNN kernel (device and call), its plain version and the
     yardstick on each map's inputs, with each call's bound."""
     per_shape = {}
     for kind, (tmap, q, bounds, params) in inputs.items():
         nt, tc, tcap = params
-        ms = time_cuda(lambda: knn._query_tiled_sorted_cuda(tmap, q, bounds, nt, tc, tcap, 5))
-        plain_ms = time_cuda(lambda: knn.query_tiled_sorted_plain(tmap, q, bounds, nt, tc, tcap, 5))
+        kernel = lambda: knn._query_tiled_sorted_cuda(tmap, q, bounds, nt, tc, tcap, 5)  # noqa: E731
+        row = {"device_ms": graph_ms(kernel)}
+        row["work_list_device_ms"] = graph_ms(lambda: knn.work_list(bounds, nt, knn.CHUNK, q.shape[0]))
+        row["call_ms"] = time_cuda(kernel)
+        row["plain_ms"] = time_cuda(lambda: knn.query_tiled_sorted_plain(tmap, q, bounds, nt, tc, tcap, 5))
         mx = tmap.xyz[tmap.valid]
-        yard_ms = time_cuda(lambda: torch.topk(torch.cdist(q, mx), 5, dim=1, largest=False))
+        row["cdist_topk_ms"] = time_cuda(lambda: torch.topk(torch.cdist(q, mx), 5, dim=1, largest=False))
         bound_ms, bound_by, pairs, nbytes = knn_bound(knn, tmap, q, bounds, params)
         per_shape[f"{label}_{kind}"] = dict(
-            queries=int(bounds[nt * nt]), map_points=int(mx.shape[0]), tile_cap=tcap, ms=ms, plain_ms=plain_ms,
-            cdist_topk_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, bytes=nbytes,
+            queries=int(bounds[nt * nt]), map_points=int(mx.shape[0]), tile_cap=tcap, **row,
+            bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, bytes=nbytes,
         )
-        log(f"  {label} {kind}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  cdist+topk (whole map, yardstick) {yard_ms:.4f} ms  "
-            f"bound {bound_ms:.5f} ms ({bound_by}; {pairs:.0f} pairs, {nbytes} bytes)")
+        log(f"  {label} {kind}: kernel device {row['device_ms']:.4f} ms (of which work list {row['work_list_device_ms']:.4f})  "
+            f"call {row['call_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+            f"cdist+topk (whole map, yardstick) {row['cdist_topk_ms']:.4f} ms  bound {bound_ms:.5f} ms ({bound_by}; {pairs:.0f} pairs, {nbytes} bytes)")
     return per_shape
 
 
 def knn_frame_totals(per_shape, label):
     """Per-frame kNN sums over one path's maps."""
     rows = [v for k, v in per_shape.items() if k.startswith(label + "_")]
-    tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "cdist_topk_ms")}
+    keys = ["device_ms", "work_list_device_ms", "call_ms", "plain_ms", "bound_ms", "cdist_topk_ms"]
+    tot = {k: sum(r[k] for r in rows) for k in keys}
     t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
     tot["bound_by"] = "bytes" if t_bytes >= tot["bound_ms"] else "operations"
     return tot
@@ -458,15 +586,44 @@ def pca_edge_inputs(knn, xyz, ng, nt, tc):
     return tiled_cloud(knn, mxyz, mvalid, nt, tc, 384), q, qv, (nt, tc, 384)
 
 
+def pca_boundary_inputs(knn, dev, nt, tc):
+    """One work item of 32 queries in one tile: the 8 corners of a 2.6 x 1.8
+    x 1.2 m box and 24 points inside it; candidates at r (1 +- 1e-6) and
+    r (1 +- k 2^-23) from each corner along the axes and the diagonals, so
+    ball membership is decided at its boundary for queries on the box's
+    corners, and a sparse background; no halo row reaches the cap."""
+    g = np.random.default_rng(13)
+    half = np.array([1.3, 0.9, 0.6], np.float32)
+    center = np.array([tc / 2.0 + 0.1, tc / 2.0 + 0.1, 0.0], np.float32)  # inside the tile at [0, tc)^2
+    corners = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)], np.float32) * half
+    q = (center + np.concatenate([corners, g.uniform(-half, half, (24, 3))])).astype(np.float32)
+    dirs = [np.eye(3)[a] * sg for a in range(3) for sg in (-1.0, 1.0)]
+    dirs += [np.array([sx, sy, sz]) / np.sqrt(3.0) for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
+    scales = [1.0 - 1e-6, 1.0 + 1e-6] + [1.0 + k * 2.0**-23 for k in range(-4, 5)]
+    cand = np.stack([q[i] + np.float32(sc) * np.asarray(d, np.float32) for i in range(8) for d in dirs for sc in scales])
+    cand = np.concatenate([cand, g.uniform(-6.0, 8.0, (500, 3))]).astype(np.float32)
+    x = torch.from_numpy(cand).to(dev)
+    tmap = tiled_cloud(knn, x, torch.ones(x.shape[0], dtype=torch.bool, device=dev), nt, tc, 512)
+    check(int(knn.halo_overflow(tmap, nt, 3 * 512)) == 0, "ball boundary case: a halo row is capped")
+    d2 = ((cand[None, :, :].astype(np.float64) - q[:8, None, :].astype(np.float64)) ** 2).sum(-1)
+    n_edge = int((np.abs(d2 - 1.0) < 1e-5).sum())
+    return tmap, torch.from_numpy(q).to(dev), torch.ones(q.shape[0], dtype=torch.bool, device=dev), (nt, tc, 512), n_edge
+
+
 def compare_pca(knn, pr, tmap, q, qv, params, name):
     """Kernel against plain on the same inputs: counts exact, means within
-    MEAN_TOL_M, covariances within COV_TOL_PER_POINT per neighbour."""
+    MEAN_TOL_M, covariances within COV_TOL_PER_POINT per neighbour; and two
+    launches on the same inputs bitwise equal."""
     nt, tc, tcap = params
     before = pr.KERNEL_LAUNCHES
     a = pr.radius_pca_moments(tmap, q, qv, nt, tc, tcap)
+    a2 = pr.radius_pca_moments(tmap, q, qv, nt, tc, tcap)
     b = pr.radius_pca_moments_plain(tmap, q, qv, nt, tc, tcap)
     torch.cuda.synchronize()
-    check(pr.KERNEL_LAUNCHES == before + 1, f"{name}: the kernel did not launch")
+    check(pr.KERNEL_LAUNCHES == before + 2, f"{name}: the kernel did not launch")
+    same = all(torch.equal(x, y) for x, y in zip(a, a2))
+    check(same, f"{name}: two launches on the same inputs differ")
+    compare_work_list(knn, knn.sort_queries(q, qv, tmap.origin, nt, tc).bounds, nt, pr.CHUNK, q.shape[0], name)
     ac, bc = a.count.cpu().numpy(), b.count.cpu().numpy()
     check(np.array_equal(ac, bc), f"{name}: counts differ in {int((ac != bc).sum())} rows")
     d_mean = float((a.mean - b.mean).abs().max())
@@ -481,15 +638,17 @@ def compare_pca(knn, pr, tmap, q, qv, params, name):
     log(f"  {name}: Q={q.shape[0]} valid={int(qv.sum())} tile_cap={tcap} widest halo row {int(c_cnt.max())} slots "
         f"(cap {3 * tcap}), truncated {int(knn.halo_overflow(tmap, nt, 3 * tcap))}; {nt2 - filled} empty tiles; "
         f"neighbours {bc.sum():.0f}; max |d count| 0, |d mean| {d_mean:.3e} m, |d cov| {d_cov.max():.3e} m^2 "
-        f"({d_cov_pp:.3e} per neighbour)")
+        f"({d_cov_pp:.3e} per neighbour); run_to_run_equal={same}")
     return err, float(bc.sum())
 
 
 def pca_bound(knn, tmap, q, qv, params, hits):
-    """Least time for one moments call: bytes it must move (valid queries,
-    live map coordinates, tile ranges read once; the [Q,10] sums written
-    once) over HBM bandwidth, and the distance work of this frame's (query,
-    candidate) pairs plus the sums of its in-ball pairs over the fp32 rate."""
+    """Least time for one moments call: the bytes it must move (valid
+    queries, live map coordinates, tile ranges read once; the [Q,10] sums
+    written once) over HBM bandwidth, and the work the function needs — the
+    distance and the sums of each in-ball pair — over the fp32 rate.
+    ``bound_halo_ms`` is the yardstick of earlier runs: the distance of every
+    (query, halo candidate) pair, which the kernel's cull no longer does."""
     nt, tc, tcap = params
     nt2 = nt * nt
     qs = knn.sort_queries(q, qv, tmap.origin, nt, tc)
@@ -500,8 +659,9 @@ def pca_bound(knn, tmap, q, qv, params, hits):
     live = int(tmap.tile_start[nt2])
     nbytes = n_q * 12 + live * 12 + 2 * 4 * (nt2 + 1) + 12 + q.shape[0] * 10 * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (pairs * FLOPS_PER_PAIR + hits * FLOPS_PER_HIT) / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), pairs, nbytes
+    t_ops = hits * (FLOPS_PER_PAIR + FLOPS_PER_HIT) / FP32_FLOPS * 1e3
+    t_halo = (pairs * FLOPS_PER_PAIR + hits * FLOPS_PER_HIT) / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), max(t_bytes, t_halo), pairs, nbytes
 
 
 def main() -> int:
@@ -525,9 +685,12 @@ def main() -> int:
     def zero_counts():
         knn.KERNEL_LAUNCHES = 0
         pr.KERNEL_LAUNCHES = 0
+        knn.WORK_LIST_LAUNCHES = 0
 
     def read_counts():
-        return {"knn_tiled": knn.KERNEL_LAUNCHES, "pca_radius": pr.KERNEL_LAUNCHES}
+        c = {"knn_tiled": knn.KERNEL_LAUNCHES, "pca_radius": pr.KERNEL_LAUNCHES, "work_list": knn.WORK_LIST_LAUNCHES}
+        check(c["work_list"] == c["knn_tiled"] + c["pca_radius"], f"work-list launches {c} != kNN + PCA launches")
+        return c
 
     phase("phase 1: device")
     smi = nvidia_smi_line()
@@ -540,8 +703,10 @@ def main() -> int:
     _build.load()
     log(f"  built {_build.BUILD_INFO['path']} in {_build.BUILD_INFO['seconds']:.1f} s")
     for line in _build.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "smem" in line or "error" in line.lower():
+        if any(w in line for w in ("Compiling entry", "registers", "smem", "spill", "==")) or "error" in line.lower():
             log(f"  ptxas: {line.strip()}")
+    floor_device_ms, floor_call_ms = launch_floor()
+    log(f"  launch floor (empty kernel): device {floor_device_ms:.4f} ms in a CUDA graph, call {floor_call_ms:.4f} ms eager")
 
     cfg = kitti_config()
     cfg_bpf = cfg.replace(mode="bpf")
@@ -577,11 +742,17 @@ def main() -> int:
     log(f"  edge cases: widest halo row over the cap by {over} slots; {n_inv} invalid queries")
     check(over > 0 and n_inv > 0, "edge-case map does not exercise the cap or invalid queries")
     knn_err = max(knn_err, compare(knn, tmap_e, q_e, b_e, surf_params, "edge cases"))
+    knn_err = max(knn_err, compare(knn, *duplicate_inputs(knn, dev, surf_params), surf_params, "duplicate points"))
+    for row in (0, nt - 1):
+        tmap_d, q_d, b_d = border_duplicate_inputs(knn, dev, surf_params, row)
+        tx = (torch.searchsorted(b_d, torch.arange(int(b_d[nt * nt]), device=dev, dtype=torch.int32), right=True) - 1) // nt
+        check(bool((tx == row).all()), f"border duplicates: a query tile lies outside tile row {row}")
+        knn_err = max(knn_err, compare(knn, tmap_d, q_d, b_d, surf_params, f"duplicate points, tile row {row} read twice"))
 
     phase("phase 5: first %d ES frames with the plain kNN on the card" % PLAIN_FRAMES)
     plain_knn_rerun(knn, lambda: make_pipeline(cfg, sync=True), frames, es, "es")
 
-    phase("phase 6: kNN times (CUDA events, %d repeats)" % REPEATS)
+    phase("phase 6: kNN times (device: CUDA graph of %d calls; call: CUDA events)" % REPEATS)
     per_shape = time_knn(knn, inputs, "es")
 
     phase("phase 7: where an ES frame's time goes (torch.profiler, %d steady frames)" % PROFILE_FRAMES)
@@ -635,7 +806,8 @@ def main() -> int:
     per_shape.update(time_knn(knn, inputs, "bpf_radius"))
     knn_tot = {label: knn_frame_totals(per_shape, label) for label in ("es", "bpf_voxel", "bpf_radius")}
     for label, tot in knn_tot.items():
-        log(f"  kNN per {label} frame: kernel {tot['ms']:.4f} ms  plain {tot['plain_ms']:.4f} ms  bound {tot['bound_ms']:.5f} ms")
+        log(f"  kNN per {label} frame: kernel device {tot['device_ms']:.4f} ms  call {tot['call_ms']:.4f} ms  "
+            f"plain {tot['plain_ms']:.4f} ms  bound {tot['bound_ms']:.5f} ms")
 
     phase("phase 13: PCA kernel vs plain version at main-path shapes and edge cases")
     nt, tc, tcap = cfg_rad.capacity.knn_tiles, cfg_rad.capacity.tile_cells, cfg_rad.capacity.frontend_tile_cap
@@ -649,6 +821,9 @@ def main() -> int:
     tmap_x, q_x, qv_x, params_x = pca_edge_inputs(knn, xyz_l, ng, nt, tc)
     check(int(knn.halo_overflow(tmap_x, nt, 3 * 384)) > 0, "edge case does not overflow the cap")
     pca_err = max(pca_err, compare_pca(knn, pr, tmap_x, q_x, qv_x, params_x, "edge cases")[0])
+    tmap_b, q_b, qv_b, params_b, n_edge = pca_boundary_inputs(knn, dev, nt, tc)
+    log(f"  ball boundary case: {n_edge} (corner, candidate) pairs with |d^2 - r^2| < 1e-5 m^2")
+    pca_err = max(pca_err, compare_pca(knn, pr, tmap_b, q_b, qv_b, params_b, "ball boundary")[0])
 
     phase("phase 14: first %d radius-BPF frames with the plain PCA on the card" % PLAIN_FRAMES)
     kernel_path = pr.radius_moments_sorted
@@ -665,20 +840,23 @@ def main() -> int:
     log(f"  max pose difference: {dt:.3e} m, {dr:.3e} rad")
     check(dt <= POSE_TOL_M and dr <= POSE_TOL_RAD, f"plain-PCA poses differ: {dt} m, {dr} rad")
 
-    phase("phase 15: PCA times (CUDA events; kernel %d repeats, plain %d)" % (REPEATS, PLAIN_REPEATS))
+    phase("phase 15: PCA times (device: CUDA graph of %d calls; call: CUDA events; plain %d)" % (REPEATS, PLAIN_REPEATS))
     radius = cfg_rad.pca.neighbor_radius
     qs = knn.sort_queries(xyz_l, ng, tmap_l.origin, nt, tc)
     sq = xyz_l[qs.order].contiguous()
-    pca_ms = time_cuda(lambda: pr._radius_moments_sorted_cuda(tmap_l, sq, qs.bounds, nt, tc, tcap, radius))
+    pca_kernel = lambda: pr._radius_moments_sorted_cuda(tmap_l, sq, qs.bounds, nt, tc, tcap, radius)  # noqa: E731
+    pca_device_ms = graph_ms(pca_kernel)
+    pca_call_ms = time_cuda(pca_kernel)
     pca_plain_ms = time_cuda(lambda: pr.radius_moments_sorted_plain(tmap_l, sq, qs.bounds, nt, tc, tcap, radius), PLAIN_REPEATS)
     fn_ms = time_cuda(lambda: pr.radius_pca_moments(tmap_l, xyz_l, ng, nt, tc, tcap))
     cloud = xyz_l[ng]
     x, y, z = cloud[:, 0], cloud[:, 1], cloud[:, 2]
     feats = torch.stack([torch.ones_like(x), x, y, z, x * x, y * y, z * z, x * y, x * z, y * z], -1)
     pca_yard_ms = time_cuda(lambda: (torch.cdist(cloud, cloud) < radius).float() @ feats, 10)
-    pca_bound_ms, pca_bound_by, pca_pairs, pca_bytes = pca_bound(knn, tmap_l, xyz_l, ng, (nt, tc, tcap), hits)
-    log(f"  kernel (wrapper on sorted queries) {pca_ms:.4f} ms  plain {pca_plain_ms:.4f} ms  "
-        f"bound {pca_bound_ms:.5f} ms ({pca_bound_by}; {pca_pairs:.0f} pairs, {hits:.0f} in-ball, {pca_bytes} bytes)")
+    pca_bound_ms, pca_bound_by, pca_bound_halo_ms, pca_pairs, pca_bytes = pca_bound(knn, tmap_l, xyz_l, ng, (nt, tc, tcap), hits)
+    log(f"  kernel (wrapper on sorted queries) device {pca_device_ms:.4f} ms  call {pca_call_ms:.4f} ms  plain {pca_plain_ms:.4f} ms")
+    log(f"  bound {pca_bound_ms:.5f} ms ({pca_bound_by}; {hits:.0f} in-ball pairs, {pca_bytes} bytes); "
+        f"all-halo-pairs bound of earlier runs {pca_bound_halo_ms:.5f} ms ({pca_pairs:.0f} pairs)")
     log(f"  radius_pca_moments (sort, kernel, finish) {fn_ms:.4f} ms  "
         f"(cdist < r) @ F over {cloud.shape[0]} points (yardstick) {pca_yard_ms:.4f} ms")
 
@@ -709,13 +887,22 @@ def main() -> int:
                 "replaces": "pfilter_tpu/ops/knn_tiled.py:174",
                 "launches": launches["es"]["knn_tiled"],
                 "max_abs_err": knn_err,
-                "ms": knn_tot["es"]["ms"],
+                "ms": knn_tot["es"]["device_ms"],
+                "device_ms": knn_tot["es"]["device_ms"],
+                "call_ms": knn_tot["es"]["call_ms"],
                 "plain_ms": knn_tot["es"]["plain_ms"],
                 "bound_ms": knn_tot["es"]["bound_ms"],
                 "bound_by": knn_tot["es"]["bound_by"],
                 "library_ms": None,
+                "launch_floor_device_ms": floor_device_ms,
+                "launch_floor_call_ms": floor_call_ms,
                 "yardstick_cdist_topk_ms": knn_tot["es"]["cdist_topk_ms"],
                 "launches_by_path": {k: v["knn_tiled"] for k, v in launches.items()},
+                "work_list": {
+                    "source": "pfilter_tpu_torch/csrc/work_list.cu",
+                    "launches_by_path": {k: v["work_list"] for k, v in launches.items()},
+                    "device_ms": knn_tot["es"]["work_list_device_ms"],
+                },
                 "per_path_frame": knn_tot,
                 "per_frame_shapes": per_shape,
             },
@@ -726,11 +913,16 @@ def main() -> int:
                 "replaces": "pfilter_tpu/ops/pca_radius.py:54",
                 "launches": launches["bpf_radius"]["pca_radius"],
                 "max_abs_err": pca_err,
-                "ms": pca_ms,
+                "ms": pca_device_ms,
+                "device_ms": pca_device_ms,
+                "call_ms": pca_call_ms,
                 "plain_ms": pca_plain_ms,
                 "bound_ms": pca_bound_ms,
                 "bound_by": pca_bound_by,
+                "bound_halo_ms": pca_bound_halo_ms,
                 "library_ms": None,
+                "launch_floor_device_ms": floor_device_ms,
+                "launch_floor_call_ms": floor_call_ms,
                 "moments_fn_ms": fn_ms,
                 "yardstick_cdist_matmul_ms": pca_yard_ms,
                 "launches_by_path": {k: v["pca_radius"] for k, v in launches.items()},

@@ -4,8 +4,9 @@ At first use every source is compiled with ``nvcc`` for ``sm_90a`` into an
 object (all compilers run at once), the objects are linked into one shared
 library with a plain C interface, and the library is loaded with ``ctypes``.
 The build lands in ``pfilter_tpu_torch/_build/<hash>/``, keyed by a hash of
-the sources and flags, so an unchanged tree reuses it and an edited one
-rebuilds.  A failed build raises; nothing falls back.
+the sources, the headers they include from ``csrc/`` and the flags, so an
+unchanged tree reuses it and an edited one rebuilds.  A failed build raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 # test holds them against the sources' signatures.
 VP, CI, CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "pf_knn_tiled": [VP, CI, VP, VP, VP, VP, CI, CI, CI, CI, VP, VP, VP],
-    "pf_pca_radius": [VP, CI, VP, VP, VP, VP, VP, CI, CI, CI, CF, CI, VP, VP],
+    "pf_knn_tiled": [VP, CI, VP, VP, VP, VP, VP, CI, CI, CI, CI, CI, VP, VP, VP],
+    "pf_pca_radius": [VP, CI, VP, VP, VP, VP, CI, CI, CI, CF, CF, CI, VP, VP],
+    "pf_work_list": [VP, CI, CI, VP, VP],
 }
 
 _lib = None
@@ -53,8 +55,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def sources() -> list:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list:
+    return sorted(csrc.glob("*.cu"))
 
 
 def _digest(srcs) -> str:
@@ -67,12 +69,18 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources if this tree's build is missing; return the library path."""
-    srcs = sources()
+def build_key(csrc: Path = CSRC) -> str:
+    """The build's key: the sources, the headers beside them and the flags."""
+    return _digest(sources(csrc) + sorted(csrc.glob("*.cuh")))
+
+
+def build(csrc: Path = CSRC, root: Path = BUILD_ROOT) -> Path:
+    """Compile the ``*.cu`` files of ``csrc`` if their build under ``root``
+    is missing; return the library path."""
+    srcs = sources(csrc)
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out_dir = BUILD_ROOT / _digest(srcs)
+        raise RuntimeError(f"no CUDA sources under {csrc}")
+    out_dir = root / build_key(csrc)
     lib_path = out_dir / LIB_NAME
     if lib_path.is_file():
         BUILD_INFO.update(seconds=0.0, path=str(lib_path), log="(cached)")

@@ -7,29 +7,34 @@ once per frame.  A query's candidates are its tile's 3x3 halo, read as three
 contiguous slot ranges (one per tile row), each capped at ``3 * tile_cap``
 slots.  Queries and candidates are recentered to the query tile's center
 before the fp32 squared distance, and the result is an exact top-5 ascending,
-ties broken by the lower slot.
+ties broken by the lower halo position (row, then place in the row): the
+lower slot wherever the three rows are distinct, as they are for every query
+tile :func:`sort_queries` yields.
 
 :func:`query_tiled_sorted` dispatches on the device of its queries: a CPU
 tensor runs :func:`query_tiled_sorted_plain`, a CUDA tensor launches the
 hand-written kernel ``csrc/knn_tiled.cu`` (or raises).  Both compute the same
-fp32 arithmetic in the same order, so they agree bit for bit up to which of
-two equidistant slots wins — and the tie rule makes even that identical.
+fp32 arithmetic in the same order and break ties by the same rule, so they
+agree bit for bit, indices included.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 FAR = 1.0e4  # invalid-slot coordinate: far beyond any gate, square-safe in fp32
 # Slots appended to ``xyz_t`` beyond the map capacity; the same layout as the
-# reference package's map so its states carry across unchanged.
+# reference package's map so its states carry across unchanged.  The kernels'
+# aligned bulk copies read up to 3 floats past a slice; the padding keeps
+# those reads inside the tensor.
 _PAD_EXTRA = 128
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block can use
+CHUNK = 8  # queries per work item of the kNN kernel: 16 or 32 lanes per query
 
-KERNEL_LAUNCHES = 0  # launches of the CUDA kernel (not of the plain version)
+KERNEL_LAUNCHES = 0  # launches of the CUDA kNN kernel (not of the plain version)
+WORK_LIST_LAUNCHES = 0  # launches of the work-list kernel, by both kernels' wrappers
 
 
 class TiledMap(NamedTuple):
@@ -150,6 +155,56 @@ def halo_overflow(tmap: TiledMap, nt: int, w: int) -> torch.Tensor:
     return torch.clamp(cnt - w, min=0).sum().to(torch.int32)
 
 
+def _max_items(n_queries: int, nt: int, chunk: int) -> int:
+    """Rows a work list can need: each non-empty tile adds at most one ragged
+    chunk to the ``n_queries // chunk`` full ones."""
+    return n_queries // chunk + min(nt * nt, n_queries)
+
+
+def work_list_plain(bounds: torch.Tensor, nt: int, chunk: int, n_queries: int) -> torch.Tensor:
+    """Plain version of ``csrc/work_list.cu``: the kernels' work items.  Tile
+    t's sorted queries ``[bounds[t], bounds[t+1])`` are cut into chunks of at
+    most ``chunk``, tile by tile; queries of the invalid tile (``p >=
+    bounds[NT*NT]``) belong to no item.  Returns int32 ``[1 + max_items, 4]``:
+    row 0 holds the item count, row ``1 + i`` item i as (tile, first query,
+    query count, 0); rows past the count are 0 here and unset on the card.
+    Reads the item count on the host."""
+    b = bounds.to(torch.int64)
+    chunks = torch.div(b[1:] - b[:-1] + (chunk - 1), chunk, rounding_mode="floor")
+    tile = torch.repeat_interleave(torch.arange(nt * nt, device=b.device), chunks)
+    first = torch.cumsum(chunks, 0) - chunks  # each tile's first item
+    q0 = b[tile] + (torch.arange(tile.shape[0], device=b.device) - first[tile]) * chunk
+    n = torch.clamp(b[tile + 1] - q0, max=chunk)
+    work = torch.zeros((1 + _max_items(n_queries, nt, chunk), 4), dtype=torch.int32, device=b.device)
+    work[0, 0] = tile.shape[0]
+    work[1 : 1 + tile.shape[0], :3] = torch.stack([tile, q0, n], 1).to(torch.int32)
+    return work
+
+
+def work_list(bounds: torch.Tensor, nt: int, chunk: int, n_queries: int, stream=None) -> torch.Tensor:
+    """The work list of both kernels, for ``n_queries`` sorted queries.  A CPU
+    tensor runs :func:`work_list_plain`; a CUDA tensor launches
+    ``csrc/work_list.cu`` (one block, no host sync) on ``stream`` (default:
+    PyTorch's current one) or raises."""
+    global WORK_LIST_LAUNCHES
+    if bounds.device.type == "cpu":
+        return work_list_plain(bounds, nt, chunk, n_queries)
+    if bounds.device.type != "cuda":
+        raise ValueError(f"unsupported device {bounds.device}")
+    from pfilter_tpu_torch.ops import _build
+
+    if bounds.dtype != torch.int32 or bounds.shape != (nt * nt + 1,):
+        raise ValueError("bounds must be int32 [NT*NT+1]")
+    bounds = bounds.contiguous()
+    stream = stream if stream is not None else torch.cuda.current_stream(bounds.device).cuda_stream
+    work = torch.empty((1 + _max_items(n_queries, nt, chunk), 4), dtype=torch.int32, device=bounds.device)
+    err = _build.load().pf_work_list(bounds.data_ptr(), nt * nt, chunk, work.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"work_list kernel launch failed: CUDA error {err}")
+    WORK_LIST_LAUNCHES += 1
+    return work
+
+
 def _check_inputs(tmap: TiledMap, sq_world: torch.Tensor, bounds: torch.Tensor, nt: int):
     if sq_world.dim() != 2 or sq_world.shape[1] != 3 or sq_world.dtype != torch.float32:
         raise ValueError(f"queries must be [Q,3] float32, got {tuple(sq_world.shape)} {sq_world.dtype}")
@@ -173,8 +228,8 @@ def query_tiled_sorted_plain(
     tid = torch.clamp(torch.searchsorted(bounds, p, right=True) - 1, 0, nt2 - 1)
     processed = p < bounds[nt2]
     # Candidate width: the widest halo row actually present (no slot beyond
-    # it can be a candidate); rows are laid out in ascending slot order, so a
-    # stable sort breaks distance ties by the lower slot.
+    # it can be a candidate); rows are laid out one after another, so a
+    # stable sort breaks distance ties by the lower halo position.
     width = max(int(c_cnt.max()), 1)
     j = torch.arange(width, dtype=torch.int32, device=dev)
     cnt_q = c_cnt[tid]  # [Q,3]
@@ -202,6 +257,28 @@ def query_tiled_sorted_plain(
     return TiledKnnResult(idx=idx, sqdist=sd)
 
 
+def _check_cuda_inputs(tmap: TiledMap, sq_world, bounds, nt: int):
+    """What both CUDA kernels require of their inputs, beyond ``_check_inputs``."""
+    _check_inputs(tmap, sq_world, bounds, nt)
+    dev = sq_world.device
+    if any(t.device != dev for t in (tmap.xyz_t, tmap.tile_start, bounds, tmap.origin)):
+        raise ValueError("map, bounds and queries must be on one device")
+    if tmap.tile_start.dtype != torch.int32 or bounds.dtype != torch.int32:
+        raise ValueError("tile_start and bounds must be int32")
+    if tmap.xyz_t.dtype != torch.float32 or tmap.origin.dtype != torch.float32:
+        raise ValueError("xyz_t and origin must be float32")
+    if tmap.xyz_t.dim() != 2 or tmap.xyz_t.shape[0] != 4:
+        raise ValueError(f"xyz_t must be [4, stride], got {tuple(tmap.xyz_t.shape)}")
+
+
+def _aligned_coords(xyz_t: torch.Tensor) -> torch.Tensor:
+    """``xyz_t`` as the kernels' bulk copies take it: contiguous, 16-byte aligned."""
+    xyz_t = xyz_t.contiguous()
+    if xyz_t.data_ptr() % 16:
+        raise ValueError("xyz_t must start on a 16-byte boundary for the kernels' bulk copies")
+    return xyz_t
+
+
 def _query_tiled_sorted_cuda(
     tmap: TiledMap, sq_world, bounds, nt: int, tile_cells: int, tile_cap: int, k: int
 ) -> TiledKnnResult:
@@ -209,21 +286,14 @@ def _query_tiled_sorted_cuda(
     global KERNEL_LAUNCHES
     from pfilter_tpu_torch.ops import _build
 
-    _check_inputs(tmap, sq_world, bounds, nt)
+    _check_cuda_inputs(tmap, sq_world, bounds, nt)
     if k != 5:
         raise ValueError(f"the CUDA kNN kernel is built for k=5, got k={k}")
     w = 3 * tile_cap
-    if 3 * w * 16 > _SMEM_LIMIT:
-        raise ValueError(f"tile_cap={tile_cap}: the halo ({3 * w} slots) exceeds shared memory")
+    if 2 * 9 * ((w + 6) // 4 * 4) * 4 > _SMEM_LIMIT:  # two staged halos of 3 rows x 3 coordinates
+        raise ValueError(f"tile_cap={tile_cap}: two staged halos ({3 * w} slots each) exceed shared memory")
     dev = sq_world.device
-    tensors = (tmap.xyz_t, tmap.tile_start, bounds, tmap.origin, sq_world)
-    if any(t.device != dev for t in tensors):
-        raise ValueError("map, bounds and queries must be on one device")
-    if tmap.tile_start.dtype != torch.int32 or bounds.dtype != torch.int32:
-        raise ValueError("tile_start and bounds must be int32")
-    if tmap.xyz_t.dtype != torch.float32 or tmap.origin.dtype != torch.float32:
-        raise ValueError("xyz_t and origin must be float32")
-    xyz_t = tmap.xyz_t.contiguous()
+    xyz_t = _aligned_coords(tmap.xyz_t)
     tile_start = tmap.tile_start.contiguous()
     bounds = bounds.contiguous()
     origin = tmap.origin.contiguous()
@@ -233,21 +303,11 @@ def _query_tiled_sorted_cuda(
     sqdist = torch.empty((q, k), dtype=torch.float32, device=dev)
     if q == 0:
         return TiledKnnResult(idx=idx, sqdist=sqdist)
-    lib = _build.load()
-    err = lib.pf_knn_tiled(
-        ctypes.c_void_p(xyz_t.data_ptr()),
-        ctypes.c_int(xyz_t.shape[1]),
-        ctypes.c_void_p(tile_start.data_ptr()),
-        ctypes.c_void_p(bounds.data_ptr()),
-        ctypes.c_void_p(origin.data_ptr()),
-        ctypes.c_void_p(queries.data_ptr()),
-        ctypes.c_int(q),
-        ctypes.c_int(nt),
-        ctypes.c_int(tile_cells),
-        ctypes.c_int(w),
-        ctypes.c_void_p(idx.data_ptr()),
-        ctypes.c_void_p(sqdist.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    work = work_list(bounds, nt, CHUNK, q, stream)
+    err = _build.load().pf_knn_tiled(
+        xyz_t.data_ptr(), xyz_t.shape[1], tile_start.data_ptr(), bounds.data_ptr(), work.data_ptr(),
+        origin.data_ptr(), queries.data_ptr(), q, nt, tile_cells, w, CHUNK, idx.data_ptr(), sqdist.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"knn_tiled kernel launch failed: CUDA error {err}")

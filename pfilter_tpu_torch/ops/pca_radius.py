@@ -28,7 +28,6 @@ kernel (or raises).
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -36,7 +35,13 @@ import torch
 from pfilter_tpu_torch.ops import knn_tiled as knn
 
 NMOM = 10  # [cnt, x, y, z, xx, yy, zz, xy, xz, yz]
-_THREADS = 128  # queries per block of the kernel, one thread each
+# The kernel keeps a candidate only if each recentered coordinate lies within
+# radius + CULL_MARGIN of its work item's query bounding box (its plain
+# version: cull_keep_plain); the margin dwarfs
+# the fp32 rounding of the box, the recentering and the distance (a few 1e-6 m
+# at the window's coordinates), so no candidate inside a ball is dropped.
+CULL_MARGIN = 1e-3
+CHUNK = 32  # queries per work item of the kernel: one per lane of a warp
 _PLAIN_Q_BLOCK = 2048  # plain version: queries per pass
 _PLAIN_C_BLOCK = 512  # plain version: candidate slots per pass
 
@@ -91,53 +96,44 @@ def radius_moments_sorted_plain(tmap: knn.TiledMap, sq_world, bounds, nt: int, t
     return out
 
 
+def cull_keep_plain(q_world, c_world, center, radius: float):
+    """Plain version of the kernel's staging cull for one work item, in its
+    fp32 operation order: queries ``[n,3]`` and candidates ``[c,3]`` are
+    recentered on the tile's ``center`` (one rounded subtraction each), the
+    queries' bounding box is grown by ``reach = fp32(radius + CULL_MARGIN)``
+    (one rounded subtraction or addition per face), and a candidate is kept
+    when every coordinate lies in that box, faces included.  Takes float32
+    tensors; returns the ``[c]`` keep mask, the recentered candidates and the
+    box's ``lo`` and ``hi``."""
+    reach = torch.tensor(radius + CULL_MARGIN, dtype=torch.float32, device=q_world.device)
+    qc = q_world - center
+    cc = c_world - center
+    lo = qc.amin(0) - reach
+    hi = qc.amax(0) + reach
+    return ((cc >= lo) & (cc <= hi)).all(1), cc, lo, hi
+
+
 def _radius_moments_sorted_cuda(tmap: knn.TiledMap, sq_world, bounds, nt: int, tile_cells: int, tile_cap: int, radius: float) -> torch.Tensor:
     """Launch ``csrc/pca_radius.cu`` on PyTorch's current stream."""
     global KERNEL_LAUNCHES
     from pfilter_tpu_torch.ops import _build
 
-    knn._check_inputs(tmap, sq_world, bounds, nt)
+    knn._check_cuda_inputs(tmap, sq_world, bounds, nt)
     dev = sq_world.device
-    tensors = (tmap.xyz_t, tmap.tile_start, bounds, tmap.origin, sq_world)
-    if any(t.device != dev for t in tensors):
-        raise ValueError("map, bounds and queries must be on one device")
-    if tmap.tile_start.dtype != torch.int32 or bounds.dtype != torch.int32:
-        raise ValueError("tile_start and bounds must be int32")
-    if tmap.xyz_t.dtype != torch.float32 or tmap.origin.dtype != torch.float32:
-        raise ValueError("xyz_t and origin must be float32")
-    nt2 = nt * nt
     q = sq_world.shape[0]
     out = torch.zeros((q, NMOM), dtype=torch.float32, device=dev)
     if q == 0:
         return out
-    # One block per (tile, 128-query chunk): each tile's first block id, as a
-    # prefix sum on the device.  The grid is the bound on the chunk count
-    # (ceil(Q/128) + NT^2); blocks past the last chunk exit at once.
-    bounds = bounds.contiguous()
-    chunks = torch.div(bounds[1:] - bounds[:-1] + (_THREADS - 1), _THREADS, rounding_mode="floor")
-    chunk_start = torch.zeros(nt2 + 1, dtype=torch.int32, device=dev)
-    chunk_start[1:] = torch.cumsum(chunks, 0, dtype=torch.int32)
-    n_blocks = (q + _THREADS - 1) // _THREADS + nt2
-    xyz_t = tmap.xyz_t.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    work = knn.work_list(bounds, nt, CHUNK, q, stream)
+    xyz_t = knn._aligned_coords(tmap.xyz_t)
     tile_start = tmap.tile_start.contiguous()
     origin = tmap.origin.contiguous()
     queries = sq_world.contiguous()
-    lib = _build.load()
-    err = lib.pf_pca_radius(
-        ctypes.c_void_p(xyz_t.data_ptr()),
-        ctypes.c_int(xyz_t.shape[1]),
-        ctypes.c_void_p(tile_start.data_ptr()),
-        ctypes.c_void_p(bounds.data_ptr()),
-        ctypes.c_void_p(chunk_start.data_ptr()),
-        ctypes.c_void_p(origin.data_ptr()),
-        ctypes.c_void_p(queries.data_ptr()),
-        ctypes.c_int(nt),
-        ctypes.c_int(tile_cells),
-        ctypes.c_int(3 * tile_cap),
-        ctypes.c_float(radius * radius),
-        ctypes.c_int(n_blocks),
-        ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    err = _build.load().pf_pca_radius(
+        xyz_t.data_ptr(), xyz_t.shape[1], tile_start.data_ptr(), work.data_ptr(), origin.data_ptr(),
+        queries.data_ptr(), nt, tile_cells, 3 * tile_cap, radius * radius, radius + CULL_MARGIN, CHUNK,
+        out.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"pca_radius kernel launch failed: CUDA error {err}")

@@ -22,7 +22,7 @@ def _c_signatures():
 
 
 def test_sources_and_declared_signatures_agree():
-    assert [s.name for s in _build.sources()] == ["knn_tiled.cu", "pca_radius.cu"]
+    assert [s.name for s in _build.sources()] == ["knn_tiled.cu", "pca_radius.cu", "work_list.cu"]
     c = _c_signatures()
     assert set(c) == set(_build.SIGNATURES)
     for name, params in c.items():
@@ -45,6 +45,17 @@ def test_build_key_follows_sources(tmp_path):
     assert _build._digest([copy]) != a
 
 
+def test_build_key_follows_headers(tmp_path):
+    """Both kernels include csrc/async_stage.cuh: editing it must rebuild."""
+    for src in list(_build.sources()) + sorted(_build.CSRC.glob("*.cuh")):
+        (tmp_path / src.name).write_text(src.read_text())
+    assert (tmp_path / "async_stage.cuh").is_file()
+    a = _build.build_key(tmp_path)
+    assert a == _build.build_key(_build.CSRC)
+    (tmp_path / "async_stage.cuh").write_text((tmp_path / "async_stage.cuh").read_text() + "\n// edited\n")
+    assert _build.build_key(tmp_path) != a
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
@@ -62,4 +73,5 @@ def test_build_and_load_on_card():
     lib = _build.load()
     assert lib.pf_knn_tiled.restype is ctypes.c_int
     assert lib.pf_pca_radius.restype is ctypes.c_int
+    assert lib.pf_work_list.restype is ctypes.c_int
     assert Path(_build.BUILD_INFO["path"]).is_file()

@@ -126,6 +126,133 @@ def test_fewer_candidates_than_k_and_empty_map():
     assert np.isinf(n(er.sqdist)).all()
 
 
+def _border_duplicates(row, dev=None):
+    """A map and tile-sorted queries with query tiles in the window's first
+    (``row=0``) or last tile row, where a query tile's halo reads that row
+    twice.  Tile ids are not moved off the border ring (as ``build_tiled``
+    and ``sort_queries`` would), so the doubled row holds points: 40 points,
+    each stored three times in consecutive slots, plus a sparse background;
+    the queries are the points themselves (distance 0, six ways tied across
+    the two reads), points 1 cm off, and random points in the row."""
+    rng = np.random.default_rng(31 + row)
+    x0 = -NT * TILE_CELLS / 2 + row * TILE_CELLS  # the row's first x, origin at -NT*TILE_CELLS/2
+    lo, hi = [x0 + 0.05, -8.0, -1.0], [x0 + TILE_CELLS - 0.05, 8.0, 1.0]
+    base = rng.uniform(lo, hi, (40, 3)).astype(np.float32)
+    span = NT * TILE_CELLS / 2 - 0.1
+    pts = np.concatenate([np.repeat(base, 3, 0), rng.uniform(-span, span, (400, 3)).astype(np.float32)])
+    q = np.concatenate([base, base + np.float32(0.01), rng.uniform(lo, hi, (60, 3)).astype(np.float32)])
+    origin = tknn.tile_origin_for_pose(torch.zeros(3), NT, TILE_CELLS)
+
+    def tiles(xyz):
+        c = torch.clamp(torch.floor((xyz[:, :2] - origin[:2]) / TILE_CELLS).to(torch.int32), 0, NT - 1)
+        return c[:, 0] * NT + c[:, 1]
+
+    x = t(pts)
+    m_order = torch.argsort(tiles(x), stable=True)
+    sx = x[m_order]
+    sv = torch.ones(len(pts), dtype=torch.bool)
+    tmap = tknn.TiledMap(
+        xyz=sx, rg=torch.zeros((len(pts), 2)), valid=sv, xyz_t=tknn.transposed_coords(sx, sv, TILE_CAP),
+        tile_start=tknn._tile_range(tiles(sx), NT), origin=origin,
+    )
+    qt = t(q)
+    q_order = torch.argsort(tiles(qt), stable=True)
+    sq = qt[q_order].contiguous()
+    bounds = tknn._tile_range(tiles(sq), NT)
+    if dev is not None:
+        tmap = tknn.TiledMap(*(f.to(dev) for f in tmap))
+        sq, bounds = sq.to(dev), bounds.to(dev)
+    return tmap, sq, bounds
+
+
+@pytest.mark.parametrize("row", [0, NT - 1])
+def test_plain_breaks_ties_by_halo_position(row):
+    """The tie rule the kernel must reproduce: (distance, halo position), the
+    position of a candidate being its place in the three halo rows read one
+    after another.  In the window's first and last tile rows a row is read
+    twice, so a slot is its own tie and the rule differs from (distance,
+    slot); the plain version is held to a direct numpy emulation."""
+    tmap, sq, bounds = _border_duplicates(row)
+    got = tknn.query_tiled_sorted_plain(tmap, sq, bounds, NT, TILE_CELLS, TILE_CAP)
+    ts, b = n(tmap.tile_start), n(bounds)
+    xt = n(tmap.xyz_t)[:3]
+    ctr = n(tknn._tile_centers(tmap.origin, NT, TILE_CELLS))
+    f, w = np.float32, 3 * TILE_CAP
+    n_differ = 0
+    for p in range(int(b[-1])):
+        tile = int(np.searchsorted(b, p, side="right") - 1)
+        tx, ty = divmod(tile, NT)
+        assert tx == row
+        slots = []
+        for dr in (-1, 0, 1):
+            r = min(max(tx + dr, 0), NT - 1)
+            s0 = ts[r * NT + max(ty - 1, 0)]
+            slots.extend(range(s0, s0 + min(ts[r * NT + min(ty + 1, NT - 1) + 1] - s0, w)))
+        slots = np.asarray(slots)
+        c = ctr[tile]
+        qc = (n(sq)[p] - c).astype(f)
+        dd = (qc[:, None] - (xt[:, slots] - c[:, None]).astype(f)).astype(f)
+        sqd = (dd * dd).astype(f)
+        d = ((sqd[0] + sqd[1]).astype(f) + sqd[2]).astype(f)
+        by_pos = np.lexsort((np.arange(len(slots)), d))[:5]
+        np.testing.assert_array_equal(n(got.sqdist)[p], d[by_pos])
+        np.testing.assert_array_equal(n(got.idx)[p], slots[by_pos])
+        n_differ += not np.array_equal(slots[np.lexsort((slots, d))[:5]], slots[by_pos])
+    assert n_differ >= 40  # the case separates the two rules
+
+
+def _work_list_case(case):
+    """(queries, valid) for the work-list cases, at NT=16 tiles of 4 m."""
+    rng = np.random.default_rng(11)
+    if case == "no_queries":
+        return np.zeros((0, 3), np.float32), np.zeros(0, bool)
+    if case == "all_invalid":
+        return rng.uniform(-5, 5, (40, 3)).astype(np.float32), np.zeros(40, bool)
+    if case == "one_tile":  # every query in one tile: many chunks, one ragged
+        return rng.uniform([0.2, 0.2, -1], [3.8, 3.8, 1], (1000, 3)).astype(np.float32), np.ones(1000, bool)
+    if case == "border":  # mostly far outside the window: clamped into the border ring
+        q = rng.uniform(-400, 400, (700, 3)).astype(np.float32)
+        return q, rng.uniform(size=700) > 0.2
+    # sparse: empty tiles between single queries, chunk-sized tiles, invalid rows
+    q = np.concatenate([rng.uniform(-30, 30, (150, 3)), rng.uniform([4.1, 4.1, 0], [7.9, 7.9, 1], (64, 3))])
+    return q.astype(np.float32), rng.uniform(size=len(q)) > 0.1
+
+
+@pytest.mark.parametrize("chunk", [tknn.CHUNK, 32])
+@pytest.mark.parametrize("case", ["no_queries", "all_invalid", "one_tile", "border", "sparse"])
+def test_work_list_covers_each_processed_query_once(case, chunk):
+    """The kernels' work list (work_list on a CPU tensor: its plain version):
+    every processed query lies in exactly one item, inside its own tile's
+    range, tiles in order, and no item is empty or larger than a chunk;
+    invalid queries are in none, and the rows fit the list's size."""
+    q, qv = _work_list_case(case)
+    origin = tknn.tile_origin_for_pose(torch.zeros(3), NT, TILE_CELLS)
+    qs = tknn.sort_queries(t(q), t(qv), origin, NT, TILE_CELLS)
+    work = n(tknn.work_list(qs.bounds, NT, chunk, len(q)))
+    assert work.dtype == np.int32 and work.shape[1] == 4
+    n_items = int(work[0, 0])
+    assert 1 + n_items <= work.shape[0]
+    tile, q0, cnt = work[1 : 1 + n_items, 0], work[1 : 1 + n_items, 1], work[1 : 1 + n_items, 2]
+    bounds = n(qs.bounds).astype(np.int64)
+    n_proc = int(bounds[-1])
+    assert n_proc == int(qv.sum())
+    assert np.all((cnt >= 1) & (cnt <= chunk))
+    assert np.all((q0 >= bounds[tile]) & (q0 + cnt <= bounds[tile + 1]))
+    assert np.all(np.diff(tile) >= 0)
+    covered = np.zeros(len(q), np.int64)
+    for a, c in zip(q0, cnt):
+        covered[a : a + c] += 1
+    np.testing.assert_array_equal(covered[:n_proc], 1)
+    np.testing.assert_array_equal(covered[n_proc:], 0)
+    per_tile = np.diff(bounds)
+    assert n_items == int(np.sum(-(-per_tile // chunk)))
+    if case == "one_tile":
+        assert len(set(tile.tolist())) == 1 and n_items == -(-1000 // chunk)
+    if case == "border":
+        tx, ty = tile // NT, tile % NT
+        assert np.any((tx == 1) | (tx == NT - 2) | (ty == 1) | (ty == NT - 2))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -146,5 +273,17 @@ def test_cuda_kernel_equals_plain_version(cuda_device, seed, dense_row, inv):
     rp = tknn.query_tiled_sorted_plain(tmap, sq, ts.bounds, NT, TILE_CELLS, TILE_CAP)
     torch.cuda.synchronize()
     assert tknn.KERNEL_LAUNCHES == before + 1
+    np.testing.assert_array_equal(n(rk.sqdist), n(rp.sqdist))
+    np.testing.assert_array_equal(n(rk.idx), n(rp.idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [0, NT - 1])
+def test_cuda_kernel_equals_plain_on_border_duplicates(cuda_device, row):
+    """Ties where a query tile's halo reads a row twice: the kernel keeps the
+    plain version's (distance, halo position) order, indices identical."""
+    tmap, sq, bounds = _border_duplicates(row, cuda_device)
+    rk = tknn.query_tiled_sorted(tmap, sq, bounds, NT, TILE_CELLS, TILE_CAP)
+    rp = tknn.query_tiled_sorted_plain(tmap, sq, bounds, NT, TILE_CELLS, TILE_CAP)
     np.testing.assert_array_equal(n(rk.sqdist), n(rp.sqdist))
     np.testing.assert_array_equal(n(rk.idx), n(rp.idx))

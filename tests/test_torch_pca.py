@@ -173,6 +173,66 @@ def test_voxel_classify_matches(max_voxels):
         assert n(got.facade_mask).sum() > 500
 
 
+def _cull_emulated(q_world, c_world, center, radius):
+    """The kernel's cull for one work item (its plain version,
+    ``cull_keep_plain``), and the fp32 squared distance of every (query,
+    candidate) pair in the kernel's operation order."""
+    keep, cc, lo, hi = (n(x) for x in tpr.cull_keep_plain(t(q_world), t(c_world), t(center), radius))
+    f = np.float32
+    qc = (q_world.astype(f) - center.astype(f)).astype(f)
+    d = (qc[:, None, :] - cc[None, :, :]).astype(f)
+    sq = (d * d).astype(f)
+    d2 = ((sq[..., 0] + sq[..., 1]).astype(f) + sq[..., 2]).astype(f)
+    return keep, d2 < f(radius * radius), cc, lo, hi
+
+
+@pytest.mark.parametrize("radius", [1.0, 0.35])
+@pytest.mark.parametrize("world", [(0.0, 0.0, 0.0), (1000.3, -2000.7, 31.0)])
+def test_cull_never_drops_a_ball_candidate(radius, world):
+    """The PCA kernel's staging cull (csrc/pca_radius.cu), emulated: on
+    candidates placed adversarially at the cull and ball boundaries — at
+    r (1 +- k ulp) from the corners of the item's query box along the axes and
+    the diagonals, and one ulp either side of the box faces grown by r — no
+    candidate with fp32 d^2 < r^2 for any query of the box is rejected, and
+    the cull does reject candidates."""
+    rng = np.random.default_rng(21)
+    world = np.asarray(world, np.float32)
+    origin = tknn.tile_origin_for_pose(torch.from_numpy(world), NT, TILE_CELLS)
+    t_id = n(tknn._tile_ids(torch.from_numpy(world[None]), torch.ones(1, dtype=torch.bool), origin, NT, TILE_CELLS))[0]
+    center = n(tknn._tile_centers(origin, NT, TILE_CELLS))[t_id]
+    # The item: 8 box corners and 24 points inside, around the tile center.
+    half = np.array([1.3, 0.9, 0.6], np.float32)
+    corners = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)], np.float32) * half
+    q = (center + np.concatenate([corners, rng.uniform(-half, half, (24, 3))])).astype(np.float32)
+    dirs = [np.eye(3)[a] * sg for a in range(3) for sg in (-1.0, 1.0)]
+    dirs += [np.array([sx, sy, sz]) / np.sqrt(3.0) for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
+    scales = [1.0 + k * 2.0**-23 for k in range(-8, 9)] + [1 - 1e-6, 1 + 1e-6]
+    cands = [q[i] + np.float32(radius * sc) * np.asarray(d, np.float32) for i in range(8) for d in dirs for sc in scales]
+    # Up to three world-coordinate ulps either side of each face of the box
+    # grown by r, and of the box grown by reach (the cull's own faces).
+    qc = q - center
+    for a in range(3):
+        for face, sg in ((qc[:, a].min(), -1.0), (qc[:, a].max(), 1.0)):
+            for grow in (radius, radius + tpr.CULL_MARGIN):
+                v = np.float32(center[a] + face + sg * grow)
+                steps = [v]
+                for _ in range(3):
+                    steps = [np.nextafter(steps[0], np.float32(-np.inf))] + steps + [np.nextafter(steps[-1], np.float32(np.inf))]
+                for v in steps:
+                    pts = (center + rng.uniform(qc.min(0) - 0.2, qc.max(0) + 0.2, (20, 3))).astype(np.float32)
+                    pts[:, a] = v
+                    cands.append(pts)
+    c = np.concatenate([np.reshape(x, (-1, 3)) for x in cands]).astype(np.float32)
+    keep, in_ball, cc, lo, hi = _cull_emulated(q, c, center, radius)
+    hit = in_ball.any(0)
+    assert hit.sum() > 200 and (~hit).sum() > 200  # both sides of the ball are exercised
+    assert np.all(keep[hit]), f"{int((hit & ~keep).sum())} ball candidates culled"
+    assert (~keep).sum() > 50  # the cull rejects candidates just beyond reach
+    # The margin is what keeps them: without it the box would cut ball points.
+    tight = np.all((cc >= (qc.min(0) - np.float32(radius)).astype(np.float32)) & (cc <= (qc.max(0) + np.float32(radius)).astype(np.float32)), 1)
+    assert np.all(keep[tight])
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version: counts exact; means within
