@@ -33,8 +33,10 @@ count set to 0 just before it and read just after, and checks them:
    events around REPEATS eager calls (host enqueue included); CUDA-event
    times of its plain version and (a yardstick only) ``torch.cdist`` +
    ``torch.topk`` over the whole map;
-7. where a steady ES frame's time goes (torch.profiler) and which calls
-   synchronise the host while a frame is dispatched;
+7. where a steady ES frame's time goes (torch.profiler), and the call sites
+   that synchronise the host while four frames are dispatched (two fed as
+   tensors on the card, two as numpy scans, a ``GlobalMap.update`` after
+   each): none, gated;
 8. BPF odometry with the default voxel front-end (``mode="bpf"``): fps,
    drift, ATE, overflow, kNN launches (= 3 x (frames - 1)), drift < 0.783 %;
 9. the kNN kernel against its plain version on that run's beam, pillar and
@@ -60,7 +62,19 @@ count set to 0 just before it and read just after, and checks them:
     yardstick only) ``(torch.cdist(q, c) < r).float() @ F`` over the whole
     cloud; the bound from the in-ball pairs, beside the all-halo-pairs bound
     of earlier runs (``bound_halo_ms``);
-16. where a steady radius-BPF frame's time goes, and its host syncs (= 0).
+16. where a steady radius-BPF frame's time goes, and its host syncs as in 7
+    (tensor- and numpy-fed; none, gated);
+17. the KITTI runner (``pfilter_tpu_torch.run_kitti.main``) on the loop's
+    first 100 frames, rendered by the port's ``render_sequence`` and written
+    as a KITTI sequence (velodyne .bin, a calib with an axis-swapping ``Tr``,
+    cam0 poses), with ``--global-map 5``: the native prefetcher used and
+    equal to ``read_velodyne_bin`` on every scan; drift < 0.783 %, overflow
+    0, kNN launches 2 x 99; poses bit for bit those of an ``ESPipeline`` fed
+    the same scans as CUDA tensors; the trajectory file equal to them to its
+    9 digits; 100 JSONL lines; a finite, non-empty map and its .ply;
+18. checkpoint/resume: ES and default BPF run 20 frames, save the state,
+    restore it into a fresh template and run 20 more: every pose equal bit
+    for bit to frames 0-39 of the runs of phases 3 and 8.
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
 is present.  The last three lines are a JSON ``kernels`` record, the
@@ -72,6 +86,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -105,6 +120,11 @@ RADIUS_OVERRIDES = ("pca.impl=radius", "capacity.frontend_tile_cap=5120")
 PLAIN_REPEATS = 5
 MEAN_TOL_M = 1e-4
 COV_TOL_PER_POINT = 1e-3
+RUNNER_FRAMES = 100  # the KITTI runner's sequence: the loop's first 100 frames (148 m, 100 m segments score)
+RUNNER_MAP_STRIDE = 5
+RUNNER_SEQ = "99"
+KITTI_TR = [[0.0, -1.0, 0.0, 0.1], [0.0, 0.0, -1.0, -0.05], [1.0, 0.0, 0.0, 0.2]]  # velodyne -> cam0, an axis swap
+RESUME_AT = 20  # checkpoint after 20 frames, resume for 20
 
 
 def log(msg: str) -> None:
@@ -439,12 +459,15 @@ def plain_knn_rerun(knn, make_pipe, frames, ref, name):
     check(dt <= POSE_TOL_M and dr <= POSE_TOL_RAD, f"{name}: plain-kNN poses differ: {dt} m, {dr} rad")
 
 
-def profile_steady_frames(make_pipe, frames, stages, check_syncs: bool):
+def profile_steady_frames(make_pipe, frames, stages, between=None):
     """Profile frames WARMUP..WARMUP+PROFILE_FRAMES of a fresh run, with a
     span around each stage (wrapped here, not in the package): host time per
     stage, kernel launches per frame, and the device's busy share of the wall
     time (profiler on, so the wall is inflated).  Then count the call sites
-    that synchronise the host while two frames are dispatched."""
+    that synchronise the host while four more frames are dispatched, two fed
+    as tensors on the card and two as numpy scans (the valid points only, as
+    a sensor or a KITTI file gives them), with ``between(pipe, scan)`` called
+    after each frame on its numpy scan; fail unless there are none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -495,20 +518,28 @@ def profile_steady_frames(make_pipe, frames, stages, check_syncs: bool):
     # of reach): PyTorch's sync debug mode warns at each synchronising call.
     pipe.fetch_lag = 10**6
     first = WARMUP + PROFILE_FRAMES
+    checked = range(first, first + 4)
+    scans = {i: frames[i][0][frames[i][1]].cpu().numpy() for i in checked}  # read back before the check
+    torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for i in range(first, first + 2):
-                pipe.process_frame(*frames[i])
+            for i in checked:
+                if i < first + 2:
+                    pipe.process_frame(*frames[i])
+                else:
+                    pipe.process_frame(scans[i])
+                if between is not None:
+                    between(pipe, scans[i])
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = sorted(
         {f"{Path(w.filename).name}:{w.lineno}" for w in caught if "called a synchronizing CUDA operation" in str(w.message)}
     )
-    log(f"  host syncs while dispatching 2 frames: {len(syncs)} call sites {syncs}")
-    if check_syncs:
-        check(not syncs, f"a frame's dispatch synchronises the host at {syncs}")
+    log(f"  host syncs while dispatching 4 frames (2 tensor-fed, 2 numpy-fed{', a global-map update after each' if between else ''}): "
+        f"{len(syncs)} call sites {syncs}")
+    check(not syncs, f"a frame's dispatch synchronises the host at {syncs}")
 
 
 def run_protocol(pipe, frames, gt, metrics, n_frames):
@@ -664,6 +695,142 @@ def pca_bound(knn, tmap, q, qv, params, hits):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), max(t_bytes, t_halo), pairs, nbytes
 
 
+def write_kitti_layout(root: Path, seq: str, scans, gt) -> None:
+    """A KITTI odometry layout: ``sequences/<seq>/velodyne/%06d.bin`` ([N,4]
+    float32, reflectance 0), ``calib.txt`` whose ``Tr`` swaps axes and
+    offsets (velodyne -> cam0), and ``poses/<seq>.txt`` in cam0 coordinates
+    (``Tr . T_vel . Tr^-1``, so the reader's velodyne frame gives ``gt``)."""
+    d = root / "sequences" / seq
+    (d / "velodyne").mkdir(parents=True)
+    (root / "poses").mkdir()
+    for i, xyz in enumerate(scans):
+        np.concatenate([xyz, np.zeros((len(xyz), 1), np.float32)], 1).astype(np.float32).tofile(d / "velodyne" / f"{i:06d}.bin")
+    tr = np.eye(4)
+    tr[:3] = KITTI_TR
+    with open(d / "calib.txt", "w") as f:
+        f.write("P0: " + " ".join(["0"] * 12) + "\n")
+        f.write("Tr: " + " ".join(repr(float(v)) for v in tr[:3].reshape(-1)) + "\n")
+    cam = np.einsum("ij,njk,kl->nil", tr, gt, np.linalg.inv(tr))
+    with open(root / "poses" / f"{seq}.txt", "w") as f:
+        for m in cam:
+            f.write(" ".join(repr(float(v)) for v in m[:3].reshape(-1)) + "\n")
+
+
+def kitti_runner_phase(cfg, world, root, zero_counts, read_counts):
+    """Render RUNNER_FRAMES frames of the loop with the port's renderer, write them as a
+    KITTI sequence, read them back through the port's native prefetcher and
+    run ``run_kitti.main`` on them; check the result against the gates and
+    against an ``ESPipeline`` fed the same scans as CUDA tensors."""
+    from pfilter_tpu_torch import run_kitti
+    from pfilter_tpu_torch.utils import kitti, metrics, synthetic
+
+    dev = torch.device("cuda")
+    sub = synthetic.make_loop_trajectory(RUNNER_FRAMES, speed=SPEED)
+    t0 = time.perf_counter()
+    xyz, valid = synthetic.render_sequence(world, sub, cfg.lidar, AZIMUTH, noise=0.008, device=dev)
+    scans = [xyz[i][valid[i]].cpu().numpy() for i in range(RUNNER_FRAMES)]
+    gt = metrics.poses_to_matrices(np.asarray(sub.q), np.asarray(sub.t))
+    gt = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    write_kitti_layout(root / "kitti", RUNNER_SEQ, scans, gt)
+    log(f"  rendered {RUNNER_FRAMES} scans ({min(map(len, scans))}-{max(map(len, scans))} points) and wrote them "
+        f"as sequence {RUNNER_SEQ} in {time.perf_counter() - t0:.1f} s")
+
+    seq = kitti.KittiSequence(root / "kitti", RUNNER_SEQ)
+    n_read = 0
+    for got, path in zip(seq.scans(), seq.scan_paths):
+        check(np.array_equal(got, kitti.read_velodyne_bin(path)), f"native loader: {path.name} differs from read_velodyne_bin")
+        n_read += 1
+    check(seq.reader == "native", f"the KITTI reader is {seq.reader!r}, not the native prefetcher ({kitti.native_loader()[1]})")
+    check(n_read == RUNNER_FRAMES, f"native loader yielded {n_read} scans")
+    log(f"  native prefetcher {kitti.native_loader()[1]}: {n_read} scans equal to read_velodyne_bin")
+
+    made = {}
+    make_pipeline, global_map = run_kitti.make_pipeline, run_kitti.GlobalMap
+
+    def keep(key, fn):
+        def made_by(*args, **kwargs):
+            made[key] = fn(*args, **kwargs)
+            return made[key]
+
+        return made_by
+
+    out = root / "out"
+    run_kitti.make_pipeline, run_kitti.GlobalMap = keep("pipe", make_pipeline), keep("map", global_map)
+    try:
+        zero_counts()
+        (res,) = run_kitti.main(["--root", str(root / "kitti"), "--sequence", RUNNER_SEQ, "--global-map", str(RUNNER_MAP_STRIDE), "--out", str(out)])
+        counts = read_counts()
+    finally:
+        run_kitti.make_pipeline, run_kitti.GlobalMap = make_pipeline, global_map
+    pipe = made["pipe"]
+    tag = f"{RUNNER_SEQ}_run"
+    log(f"  frames/s {res['fps']}  mean ms/frame {res['mean_ms']} (frames 10-{RUNNER_FRAMES - 1}, sync=True: a fetch per frame)  "
+        f"drift_t_pct {res.get('drift_t_pct')}  ate_rmse_m {res.get('ate_rmse_m')}  overflow {res['overflow_total']}  device {res['device']}")
+    log(f"  kernel launches {counts}")
+    check(res["device"] == torch.cuda.get_device_name(0), f"runner device {res['device']!r}")
+    check(res["overflow_total"] == 0, f"runner: overflow_total {res['overflow_total']} != 0")
+    check(np.isfinite(res.get("drift_t_pct", np.nan)) and res["drift_t_pct"] < DRIFT_BAR, f"runner: drift {res.get('drift_t_pct')} not below {DRIFT_BAR}")
+    check(counts["knn_tiled"] == 2 * (RUNNER_FRAMES - 1), f"runner: kNN launches {counts} != {2 * (RUNNER_FRAMES - 1)}")
+
+    q, t = pipe.trajectory
+    est = metrics.poses_to_matrices(q, t)
+    saved = metrics.load_kitti_format(out / f"{tag}.txt")
+    check(saved.shape == est.shape and bool(np.all(np.abs(saved - est) <= 5.1e-10 * np.abs(est))), f"{tag}.txt differs from the estimate beyond its 9 digits")
+    lines = (out / f"{tag}_frames.jsonl").read_text().splitlines()
+    check(len(lines) == RUNNER_FRAMES, f"{tag}_frames.jsonl has {len(lines)} lines")
+    pts = np.load(out / f"{tag}_map.npz")["xyz"]
+    check(len(pts) > 0 and bool(np.isfinite(pts).all()) and (out / f"{tag}_map.ply").is_file(), "global map empty, non-finite or without its .ply")
+    log(f"  {tag}.txt / _frames.jsonl ({len(lines)} lines) / _map.npz ({len(pts)} points, {len(made['map']._slot_of)} cells) / _map.ply written")
+
+    # The same scans as CUDA tensors, padded as the pipeline pads a numpy scan.
+    cap = pipe.cfg.capacity.scan_points
+    tens = make_pipeline(pipe.cfg, sync=False, fetch_lag=4, device=dev)
+    for path in seq.scan_paths:
+        x = kitti.read_velodyne_bin(path)[:, :3]
+        xp, vp = np.zeros((cap, 3), np.float32), np.zeros(cap, bool)
+        xp[: len(x)], vp[: len(x)] = x[:cap], True
+        tens.process_frame(torch.from_numpy(xp).to(dev), torch.from_numpy(vp).to(dev))
+    tq, tt = tens.trajectory
+    same = np.array_equal(tq, q) and np.array_equal(tt, t)
+    log(f"  poses equal to a tensor-fed ESPipeline on the same scans: {same} "
+        f"(max |dt| {np.abs(tt - t).max():.3e} m)")
+    check(same, "runner poses differ from the tensor-fed pipeline's")
+    return counts, res
+
+
+def resume_phase(name, cfg, frames, ref, ckpt_dir):
+    """Run RESUME_AT frames, save the state, restore it into a fresh
+    template and run the next RESUME_AT frames from it: both halves must
+    equal the uninterrupted run ``ref`` bit for bit."""
+    from pfilter_tpu_torch.models import bpf_odometry, es_odometry
+    from pfilter_tpu_torch.pipeline import BPFPipeline, ESPipeline, make_pipeline
+    from pfilter_tpu_torch.utils import checkpoint
+
+    dev = torch.device("cuda")
+    first = make_pipeline(cfg, sync=False, fetch_lag=4, device=dev)
+    for i in range(RESUME_AT):
+        first.process_frame(*frames[i])
+    q1, t1 = first.trajectory
+    checkpoint.save_state(ckpt_dir, first.state, step=RESUME_AT)
+    template = es_odometry.init_state(cfg, device=dev) if name == "es" else bpf_odometry.init_state(cfg, device=dev)
+    restored, meta = checkpoint.restore_state(ckpt_dir, template)
+    check(meta["restored_from_template"] == [] and meta["step"] == RESUME_AT, f"{name}: restore fell back to the template: {meta}")
+    resumed = (ESPipeline if name == "es" else BPFPipeline)(cfg, state=restored, sync=False, fetch_lag=4, device=dev)
+    t0 = time.perf_counter()
+    for i in range(RESUME_AT, 2 * RESUME_AT):
+        resumed.process_frame(*frames[i])
+    q2, t2 = resumed.trajectory
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / RESUME_AT * 1e3
+    size = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+    same1 = np.array_equal(q1, ref["q"][:RESUME_AT]) and np.array_equal(t1, ref["t"][:RESUME_AT])
+    same2 = np.array_equal(q2, ref["q"][RESUME_AT : 2 * RESUME_AT]) and np.array_equal(t2, ref["t"][RESUME_AT : 2 * RESUME_AT])
+    log(f"  {name}: checkpoint {size} bytes ({meta['n_leaves']} leaves); frames 0-{RESUME_AT - 1} equal to the uninterrupted run: {same1}; "
+        f"resumed frames {RESUME_AT}-{2 * RESUME_AT - 1} equal: {same2} (max |dt| {np.abs(t2 - ref['t'][RESUME_AT : 2 * RESUME_AT]).max():.3e} m); "
+        f"resumed run {ms:.2f} ms/frame")
+    check(same1 and same2, f"{name}: the resumed run differs from the uninterrupted one")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -673,6 +840,7 @@ def main() -> int:
     from pfilter_tpu_torch.ops import _build, dcvc, features, ground, pca_classify, pose_graph
     from pfilter_tpu_torch.ops import knn_tiled as knn
     from pfilter_tpu_torch.ops import pca_radius as pr
+    from pfilter_tpu_torch.models.global_map import GlobalMap
     from pfilter_tpu_torch.pipeline import make_pipeline
     from pfilter_tpu_torch.utils import metrics, synthetic
 
@@ -756,11 +924,18 @@ def main() -> int:
     per_shape = time_knn(knn, inputs, "es")
 
     phase("phase 7: where an ES frame's time goes (torch.profiler, %d steady frames)" % PROFILE_FRAMES)
+    gmap = GlobalMap(resolution=cfg.odometry.map_resolution, device=dev)
+
+    def map_update(pipe, scan):
+        rec = pipe.records[-1]  # the newest fetched pose: host data
+        sub = scan[:: max(1, len(scan) // 30000)]
+        gmap.update(rec.pose_q, rec.pose_t, sub, np.ones(len(sub), bool))
+
     profile_steady_frames(
         lambda: make_pipeline(cfg, sync=False, fetch_lag=4),
         frames,
         [(features, "extract_features"), (es_odometry, "_es_outer_assoc_once"), (pose_graph, "smoothed_newest"), (map_state, "merge_scan_into_index")],
-        check_syncs=False,
+        between=map_update,
     )
 
     phase("phase 8: BPF odometry, default (voxel) front-end (v1 protocol, %d frames)" % BPF_FRAMES)
@@ -874,8 +1049,21 @@ def main() -> int:
             (pose_graph, "smoothed_newest"),
             (map_state, "merge_scan_into_index"),
         ],
-        check_syncs=True,
     )
+    phase("phase 17: KITTI runner on the card (python -m pfilter_tpu_torch.run_kitti, %d frames, --global-map %d)" % (RUNNER_FRAMES, RUNNER_MAP_STRIDE))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["kitti_runner"], runner = kitti_runner_phase(cfg, world, Path(tmp), zero_counts, read_counts)
+
+    phase("phase 18: checkpoint/resume on the card (ES and default BPF, %d + %d frames)" % (RESUME_AT, RESUME_AT))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, c, ref in (("es", cfg, es), ("bpf", cfg_bpf, bpf)):
+            zero_counts()
+            resume_phase(name, c, frames, ref, Path(tmp) / name)
+            launches[f"{name}_resume"] = read_counts()
+            per_frame = 2 if name == "es" else 3
+            want = per_frame * (RESUME_AT - 1) + per_frame * RESUME_AT
+            check(launches[f"{name}_resume"]["knn_tiled"] == want, f"{name} resume: kNN launches {launches[f'{name}_resume']} != {want}")
+            log(f"  kernel launches {launches[f'{name}_resume']}")
     log(f"  total wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {

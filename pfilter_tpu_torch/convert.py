@@ -10,6 +10,12 @@ arrays, which :func:`state_from_jax_numpy` also accepts).
 :func:`bpf_state_from_jax_numpy` and :func:`bpf_state_to_numpy` do the same
 for a ``BPFState`` (beam, pillar and facade maps).  Nothing here imports the
 reference package: its state is read by field name.
+
+:func:`flatten_leaves` and :func:`nest_leaves` go between that nested form
+and the reference's flat form, one array per dotted pytree path
+(``edge_map.xyz``, ``pose.q``, ``opt_count``, ``pg_valid``, ...) in the
+reference's leaf order; ``utils/checkpoint.py`` stores states in it, so a
+checkpoint is a second way to carry a state between the packages.
 """
 
 from __future__ import annotations
@@ -95,3 +101,51 @@ def bpf_state_from_jax_numpy(tree, device=None) -> BPFState:
 def bpf_state_to_numpy(state: BPFState) -> dict:
     """Nested dicts of numpy arrays with the reference package's field names."""
     return _to_numpy(state, _BPF_MAPS)
+
+
+def to_numpy(state) -> dict:
+    """:func:`state_to_numpy` or :func:`bpf_state_to_numpy`, by the state's type."""
+    return _to_numpy(state, _ES_MAPS if isinstance(state, ESState) else _BPF_MAPS)
+
+
+def from_numpy_like(tree, template):
+    """A state of ``template``'s type on its device, from nested numpy leaves."""
+    if isinstance(template, ESState):
+        return _from(ESState, tree, _ES_MAPS, template.pose.q.device)
+    return _from(BPFState, tree, _BPF_MAPS, template.pose.q.device)
+
+
+def flatten_leaves(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts of arrays -> ``{dotted name: array}``, in the reference
+    package's pytree leaf order (the order of :func:`state_to_numpy`)."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(flatten_leaves(value, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = value
+    return out
+
+
+def nest_leaves(flat: dict) -> dict:
+    """``{dotted name: array}`` -> nested dicts (inverse of :func:`flatten_leaves`)."""
+    out: dict = {}
+    for name, value in flat.items():
+        *path, last = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = value
+    return out
+
+
+def treedef_string(state) -> str:
+    """The reference package's ``str`` of the state's pytree structure
+    (informational; restoring reads leaf names, not this)."""
+
+    def node(x):
+        if hasattr(x, "_fields"):
+            return f"CustomNode(namedtuple[{type(x).__name__}], [{', '.join(node(v) for v in x)}])"
+        return "*"
+
+    return f"PyTreeDef({node(state)})"

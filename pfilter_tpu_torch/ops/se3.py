@@ -104,6 +104,31 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation matrix -> wxyz quaternion (branch-free Shepperd):
+    all four candidate constructions, the one with the largest pivot kept."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    piv = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+    piv = torch.sqrt(torch.clamp(piv, min=1e-12)) * 0.5
+    w0, x1, y2, z3 = piv[..., 0], piv[..., 1], piv[..., 2], piv[..., 3]
+    cand = torch.stack(
+        [
+            torch.stack([w0, (m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0), (m10 - m01) / (4 * w0)], -1),
+            torch.stack([(m21 - m12) / (4 * x1), x1, (m01 + m10) / (4 * x1), (m02 + m20) / (4 * x1)], -1),
+            torch.stack([(m02 - m20) / (4 * y2), (m01 + m10) / (4 * y2), y2, (m12 + m21) / (4 * y2)], -1),
+            torch.stack([(m10 - m01) / (4 * z3), (m02 + m20) / (4 * z3), (m12 + m21) / (4 * z3), z3], -1),
+        ],
+        -2,
+    )
+    idx = torch.argmax(piv, dim=-1)  # the first of tied maxima, as jnp.argmax
+    q = torch.take_along_dim(cand, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2)[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)  # canonical sign, w >= 0
+    return quat_normalize(q)
+
+
 def exp_se3(xi: torch.Tensor) -> Pose:
     """se(3) exponential: tangent ``[omega, upsilon]`` -> (q, t).
 

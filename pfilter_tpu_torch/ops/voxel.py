@@ -9,7 +9,9 @@ Port of ``pfilter_tpu/ops/voxel.py``:
   map re-voxelizer (ref: :34-134) — per-voxel centroid with per-voxel
   **max** of the persistence counters (r = age, g = observation count);
 - :func:`persistence_keep` is ``extractstablepoint``'s predicate
-  (ref: :7-25).
+  (ref: :7-25);
+- :func:`empty_pointset` and :func:`concat_pointsets` build the fixed-capacity
+  sets the global map merges.
 
 Everything is fixed-capacity: the voxel hash map is a stable sort by cell id
 plus segment reductions.  Segment reductions write into ``cap + 1`` rows and
@@ -32,6 +34,23 @@ class PointSet(NamedTuple):
     xyz: torch.Tensor  # [N, 3] float32
     rg: torch.Tensor  # [N, W] float32 — (r = age rounds, g = observations, ...)
     valid: torch.Tensor  # [N] bool
+
+
+def empty_pointset(capacity: int, device=None) -> PointSet:
+    return PointSet(
+        xyz=torch.zeros((capacity, 3), dtype=torch.float32, device=device),
+        rg=torch.zeros((capacity, 2), dtype=torch.float32, device=device),
+        valid=torch.zeros(capacity, dtype=torch.bool, device=device),
+    )
+
+
+def concat_pointsets(a: PointSet, b: PointSet) -> PointSet:
+    """Concatenate two fixed-capacity sets (result capacity = sum)."""
+    return PointSet(
+        xyz=torch.cat([a.xyz, b.xyz], 0),
+        rg=torch.cat([a.rg, b.rg], 0),
+        valid=torch.cat([a.valid, b.valid], 0),
+    )
 
 
 def voxel_ids_dynamic(xyz: torch.Tensor, valid: torch.Tensor, leaf: float) -> torch.Tensor:

@@ -5,7 +5,9 @@ Port of ``ESPipeline`` and ``BPFPipeline`` from ``pfilter_tpu/pipeline.py``.
 An ES frame is the optional ground/DCVC pre-filter, feature extraction, then
 one odometry step; a BPF frame is the front-end (ground, DCVC, PCA classes)
 then one three-channel odometry step.  Tensors stay on the device; the host
-loop only feeds raw scans and collects poses.  With ``sync=False``
+loop only feeds raw scans and collects poses.  A numpy scan is padded in
+pinned host memory and copied up without blocking, so feeding it does not
+wait for the frames before it.  With ``sync=False``
 the per-frame results (pose and diagnostics, a few dozen numbers) are copied
 to pinned host memory without blocking and read ``fetch_lag`` frames later,
 after a CUDA event says they are there — the loop never waits on the frame
@@ -22,7 +24,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from pfilter_tpu_torch import resolve_device
+from pfilter_tpu_torch import host_buffer, resolve_device, upload
 from pfilter_tpu_torch.config import PipelineConfig
 from pfilter_tpu_torch.models import bpf_frontend, bpf_odometry, es_odometry
 from pfilter_tpu_torch.ops import dcvc, features, ground
@@ -79,16 +81,16 @@ class _HostLoop:
         self._last_scan_trunc = 0
         if not isinstance(xyz, np.ndarray):
             if valid is None:
-                return xyz.to(self.device), torch.ones(xyz.shape[0], dtype=torch.bool, device=self.device)
-            return xyz.to(self.device), valid.to(self.device)
+                return upload(xyz, self.device), torch.ones(xyz.shape[0], dtype=torch.bool, device=self.device)
+            return upload(xyz, self.device), upload(valid, self.device)
         cap = self.cfg.capacity.scan_points
         n = min(len(xyz), cap)
         self._last_scan_trunc = max(len(xyz) - cap, 0)
-        out = np.zeros((cap, 3), np.float32)
-        out[:n] = xyz[:n]
-        mask = np.zeros(cap, bool)
-        mask[:n] = True if valid is None else valid[:n]
-        return torch.from_numpy(out).to(self.device), torch.from_numpy(mask).to(self.device)
+        out = host_buffer((cap, 3), torch.float32, self.device)
+        mask = host_buffer((cap,), torch.bool, self.device)
+        out.numpy()[:n] = xyz[:n]
+        mask.numpy()[:n] = True if valid is None else valid[:n]
+        return upload(out, self.device), upload(mask, self.device)
 
     def _enqueue(self, t0: float, row: torch.Tensor):
         """Start the device->host copy of this frame's packed results."""
@@ -222,9 +224,16 @@ class ESPipeline(_HostLoop):
         if self.provenance:
             if mover is None:
                 raise ValueError("provenance=True needs a mover mask per scan")
-            mover_d = torch.zeros(xyz_d.shape[0], dtype=torch.bool, device=self.device)
-            m = torch.as_tensor(mover, device=self.device).to(torch.bool)[: xyz_d.shape[0]]
-            mover_d[: m.shape[0]] = m  # padded like the scan
+            n = xyz_d.shape[0]
+            if isinstance(mover, torch.Tensor) and mover.device.type != "cpu":
+                mover_d = torch.zeros(n, dtype=torch.bool, device=self.device)
+                m = mover.to(self.device, torch.bool)[:n]
+                mover_d[: m.shape[0]] = m  # padded like the scan
+            else:
+                m = np.asarray(mover, bool)[:n]
+                host = host_buffer((n,), torch.bool, self.device)
+                host.numpy()[: m.shape[0]] = m  # padded like the scan
+                mover_d = upload(host, self.device)
             mgrid = features.bin_extra(xyz_d, mask_d, mover_d, self.cfg.lidar, self.cfg.capacity)
         if self.state is None:
             state = es_odometry.init_state(self.cfg, rg_width=3 if self.provenance else 2, device=self.device)

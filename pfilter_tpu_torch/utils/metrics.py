@@ -1,8 +1,8 @@
-"""Trajectory evaluation: KITTI odometry drift protocol and ATE.
+"""Trajectory evaluation: KITTI odometry drift protocol, ATE, RPE and the
+KITTI pose file format.
 
-The port's own numpy copy of ``pfilter_tpu/utils/metrics.py``'s
-``poses_to_matrices``, ``trajectory_distances``, ``kitti_drift`` and
-``ate_rmse`` (the in-repo replacement for the external
+The port's own numpy copy of ``pfilter_tpu/utils/metrics.py`` (the in-repo
+replacement for the external
 ``KITTI_odometry_evaluation_tool``, ref: runkitti.py:111-157): average
 translational drift (%) and rotational drift (deg/m) over subsequences of
 fixed lengths, evaluated every ``step`` frames.
@@ -84,3 +84,35 @@ def ate_rmse(gt: np.ndarray, est: np.ndarray) -> float:
     trajectories share the identity start frame)."""
     d = gt[:, :3, 3] - est[:, :3, 3]
     return float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
+
+
+def rpe(gt: np.ndarray, est: np.ndarray, delta: int = 1) -> dict:
+    """Relative pose error over ``delta``-frame steps."""
+    t_errs, r_errs = [], []
+    for i in range(len(gt) - delta):
+        gt_rel = np.linalg.inv(gt[i]) @ gt[i + delta]
+        est_rel = np.linalg.inv(est[i]) @ est[i + delta]
+        err = np.linalg.inv(est_rel) @ gt_rel
+        t_errs.append(np.linalg.norm(err[:3, 3]))
+        a = np.clip((np.trace(err[:3, :3]) - 1) / 2, -1.0, 1.0)
+        r_errs.append(np.degrees(np.arccos(a)))
+    return {
+        "t_rmse_m": float(np.sqrt(np.mean(np.square(t_errs)))),
+        "r_rmse_deg": float(np.sqrt(np.mean(np.square(r_errs)))),
+    }
+
+
+def save_kitti_format(path, poses: np.ndarray) -> None:
+    """Write poses as KITTI rows of 12 values (the top 3x4 of each matrix,
+    row-major, ``%.9e``), the format the KITTI evaluation reads."""
+    with open(path, "w") as f:
+        for m in poses:
+            f.write(" ".join(f"{v:.9e}" for v in m[:3].reshape(-1)) + "\n")
+
+
+def load_kitti_format(path) -> np.ndarray:
+    """KITTI pose rows -> [N, 4, 4]."""
+    rows = np.loadtxt(path).reshape(-1, 3, 4)
+    out = np.tile(np.eye(4), (len(rows), 1, 1))
+    out[:, :3, :] = rows
+    return out

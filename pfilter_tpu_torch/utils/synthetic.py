@@ -555,3 +555,16 @@ def render_scan(
     if return_mover:
         return pts, valid, is_mover
     return pts, valid
+
+
+def render_sequence(world: World, poses: se3.Pose, lidar: LidarConfig, n_azimuth: int, noise: float = 0.01, device=None):
+    """Render every frame of ``poses`` on ``device`` (CUDA unless ``"cpu"``
+    is passed); frame ``i`` uses ``seed=i`` and ``t_time=i``.  Returns
+    ``(xyz [F, R*A, 3], valid [F, R*A])``."""
+    q, t = np.asarray(poses.q), np.asarray(poses.t)
+    xs, vs = [], []
+    for i in range(t.shape[0]):
+        x, v = render_scan(se3.Pose(q=q[i], t=t[i]), world, lidar, n_azimuth, noise=noise, seed=i, t_time=i, device=device)
+        xs.append(x)
+        vs.append(v)
+    return torch.stack(xs), torch.stack(vs)

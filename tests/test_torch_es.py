@@ -1,7 +1,7 @@
 """The port's ES odometry slice against the reference package: six frames of
 ``ESPipeline`` in both packages on the same rendered scans, state carried
 across with ``convert.state_from_jax_numpy``, and the entry points' device
-rules.
+rules; the renderer's ``render_sequence`` and a numpy-fed corrupt frame.
 
 Pose tolerance, 1 cm and 2e-3 rad: the cold-start frames of this tiny
 16-beam config sit on gate boundaries, and the reference package's own
@@ -27,7 +27,7 @@ from pfilter_tpu_torch.models import es_odometry as tes
 from pfilter_tpu_torch.ops import features as tfeat
 from pfilter_tpu_torch.pipeline import BPFPipeline, ESPipeline, make_pipeline
 from pfilter_tpu_torch.utils import synthetic as tsyn
-from torch_parity import n, rotation_angle, t, tiny_config
+from torch_parity import n, rotation_angle, t, tiny_config, torch_config
 
 N_FRAMES = 6
 CARRY_AT = 3
@@ -184,3 +184,56 @@ def test_halo_escape_count_matches(runs):
     jc = jes._halo_escape_count(jnp.array(q), jnp.array(qv), jnp.array(bounds), jnp.array(origin), jcfg, "surf")
     tc = tes._halo_escape_count(t(q), t(qv), t(bounds), t(origin), tcfg, "surf")
     assert int(n(tc)) == int(n(jc)) > 0
+
+
+def test_render_sequence_matches_reference():
+    """Frame i is ``render_scan(seed=i, t_time=i)`` in both packages (movers
+    advance with the frame); without range noise the validity masks are
+    equal and the points agree to float32 ray-casting round-off: 1e-4 m plus
+    2e-5 of the range (a ray grazing a wall scales the round-off of its
+    direction by 1/sin of the angle; measured 4.6e-4 m at 45 m)."""
+    jcfg, tcfg = tiny_config()
+    world = synthetic.make_world(seed=5, corridor_len=60.0, n_movers=4)
+    poses = synthetic.make_trajectory(3, speed=1.2)
+    jx, jv = synthetic.render_sequence(world, poses, jcfg.lidar, n_azimuth=256, noise=0.0)
+    tworld = tsyn.make_world(seed=5, corridor_len=60.0, n_movers=4)
+    tposes = tsyn.make_trajectory(3, speed=1.2)
+    tx, tv = tsyn.render_sequence(tworld, tposes, tcfg.lidar, 256, noise=0.0, device="cpu")
+    assert tx.shape == jx.shape and tv.shape == jv.shape
+    np.testing.assert_array_equal(n(tv), n(jv))
+    np.testing.assert_allclose(n(tx)[n(tv)], n(jx)[n(jv)], rtol=2e-5, atol=1e-4)
+    # Seeded noise: frame i is render_scan with seed=i, t_time=i.
+    nx, _ = tsyn.render_sequence(tworld, tposes, tcfg.lidar, 256, noise=0.01, device="cpu")
+    one, _ = tsyn.render_scan(tsyn.se3.Pose(q=tposes.q[2], t=tposes.t[2]), tworld, tcfg.lidar, 256, noise=0.01, seed=2, t_time=2, device="cpu")
+    np.testing.assert_array_equal(n(nx[2]), n(one))
+
+
+def test_corrupt_frame_dropped_numpy_fed():
+    """Twin of ``tests/test_fault_tolerance.py::test_corrupt_frame_dropped``,
+    fed numpy scans (the pinned staging path of ``_device_scan``): a garbage
+    scan leaves the pose finite and near the pre-fault pose, and tracking
+    recovers."""
+    from tests.test_es_odometry import small_config
+
+    cfg = small_config()
+    world = synthetic.make_world(seed=3, corridor_len=60.0)
+    poses = synthetic.make_trajectory(6, speed=0.8)
+    xyz, valid = synthetic.render_sequence(world, poses, cfg.lidar, n_azimuth=720, noise=0.004)
+    xyz, valid = np.asarray(xyz), np.asarray(valid)
+    pipe = ESPipeline(torch_config(cfg), device="cpu", max_jump_m=3.0)
+    for i in range(3):
+        pipe.process_frame(xyz[i], valid[i])
+    t_before = pipe.records[-1].pose_t
+    garbage = np.random.default_rng(0).uniform(-500, 500, size=(xyz.shape[1], 3)).astype(np.float32)
+    pipe.process_frame(garbage, valid[0])
+    t_after = pipe.records[-1].pose_t
+    assert np.isfinite(t_after).all()
+    assert np.linalg.norm(t_after - t_before) < 3.0
+    for i in (3, 4, 5):
+        pipe.process_frame(xyz[i], valid[i])
+    assert np.isfinite(pipe.records[-1].pose_t).all()
+    # Fed the same scans as tensors, the pipeline gives the same poses bit for bit.
+    tens = ESPipeline(torch_config(cfg), device="cpu", max_jump_m=3.0)
+    for x, v in [(xyz[0], valid[0]), (xyz[1], valid[1]), (xyz[2], valid[2]), (garbage, valid[0])]:
+        tens.process_frame(t(x), t(v))
+    np.testing.assert_array_equal(np.stack([r.pose_t for r in tens.records]), np.stack([r.pose_t for r in pipe.records[:4]]))

@@ -1,5 +1,6 @@
-"""The port stands alone: ``pfilter_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package, checked two ways — by walking their
+"""The port stands alone: ``pfilter_tpu_torch`` (its KITTI runner
+``run_kitti.py`` included) and ``chip_smoke.py`` import neither JAX, nor the
+reference package, nor the reference's ``tools/``, checked two ways — by walking their
 import statements, and by importing every module in a fresh interpreter in
 which ``jax``, ``jaxlib`` and ``pfilter_tpu`` cannot be imported."""
 
@@ -13,7 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "pfilter_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "pfilter_tpu")
+FORBIDDEN = ("jax", "jaxlib", "pfilter_tpu", "tools")
 
 
 def _port_files():
@@ -54,7 +55,14 @@ print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 25  # every module of the ES and BPF slices was imported
+    # Every module of the ES and BPF slices and of the KITTI runner's slice was imported.
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30
+
+
+def test_runner_is_covered():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("run_kitti.py", "models/global_map.py", "utils/checkpoint.py", "utils/kitti.py", "utils/profiling.py"):
+        assert f"pfilter_tpu_torch/{mod}" in names
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -1,7 +1,7 @@
 """Parity of the port's geometry and solver modules with the reference
 package on the same numpy inputs: ops/se3.py, ops/eig3.py,
 ops/gauss_newton.py, ops/pose_graph.py, ops/voxel.py, utils/metrics.py and
-config.py.
+config.py (``matrix_to_quat``, ``rpe`` and the point-set helpers included).
 
 Tolerances: fp32 elementwise math in the same order agrees to a few ulps
 (atol 1e-5 on unit-scale values); reductions whose order differs between the
@@ -276,6 +276,48 @@ def test_metrics_match():
     np.testing.assert_array_equal(tmetrics.trajectory_distances(gt), jmetrics.trajectory_distances(gt))
     assert tmetrics.kitti_drift(gt, est, lengths=(50.0, 100.0)) == jmetrics.kitti_drift(gt, est, lengths=(50.0, 100.0))
     assert tmetrics.ate_rmse(gt, est) == jmetrics.ate_rmse(gt, est)
+
+
+@pytest.mark.parametrize("delta", [1, 5])
+def test_rpe_matches(delta):
+    rng = np.random.default_rng(10)
+    m = 60
+    q = _quats(rng, m)
+    tt = np.cumsum(rng.normal(size=(m, 3)), 0).astype(np.float32)
+    gt = jmetrics.poses_to_matrices(q, tt)
+    est = jmetrics.poses_to_matrices(_quats(rng, m), tt + rng.normal(size=(m, 3)).astype(np.float32) * 0.2)
+    assert tmetrics.rpe(gt, est, delta) == jmetrics.rpe(gt, est, delta)
+
+
+def test_matrix_to_quat_matches():
+    """Every Shepperd pivot: random rotations plus half turns about x, y, z
+    (the w pivot vanishes there) and the identity."""
+    rng = np.random.default_rng(11)
+    half_turns = np.array([[0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1], [1, 0, 0, 0], [0.01, 0.99995, 0, 0]], np.float32)
+    q = np.concatenate([_quats(rng, 64), half_turns / np.linalg.norm(half_turns, axis=1, keepdims=True)])
+    m = n(jse3.quat_to_matrix(jnp.array(q)))
+    ref = n(jse3.matrix_to_quat(jnp.array(m)))
+    out = n(tse3.matrix_to_quat(t(m)))
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+    # The same rotation as the input (up to the quaternion's sign).
+    np.testing.assert_allclose(n(tse3.quat_to_matrix(t(out))), m, atol=ATOL)
+    assert (out[:, 0] >= 0).all()
+    piv = np.stack([1 + np.trace(m, axis1=1, axis2=2), 1 + m[:, 0, 0] - m[:, 1, 1] - m[:, 2, 2],
+                    1 - m[:, 0, 0] + m[:, 1, 1] - m[:, 2, 2], 1 - m[:, 0, 0] - m[:, 1, 1] + m[:, 2, 2]], -1)
+    assert set(np.argmax(piv, -1)) == {0, 1, 2, 3}
+
+
+def test_pointset_helpers_match():
+    rng = np.random.default_rng(12)
+    a = [rng.normal(size=(5, 3)).astype(np.float32), rng.normal(size=(5, 2)).astype(np.float32), rng.uniform(size=5) > 0.5]
+    b = [rng.normal(size=(3, 3)).astype(np.float32), rng.normal(size=(3, 2)).astype(np.float32), rng.uniform(size=3) > 0.5]
+    ref = jvoxel.concat_pointsets(jvoxel.PointSet(*map(jnp.array, a)), jvoxel.PointSet(*map(jnp.array, b)))
+    out = tvoxel.concat_pointsets(tvoxel.PointSet(*map(t, a)), tvoxel.PointSet(*map(t, b)))
+    for x, y in zip(out, ref):
+        np.testing.assert_array_equal(n(x), n(y))
+    for x, y in zip(tvoxel.empty_pointset(7, device="cpu"), jvoxel.empty_pointset(7)):
+        assert x.dtype == t(n(y)).dtype
+        np.testing.assert_array_equal(n(x), n(y))
 
 
 @pytest.mark.parametrize("preset", ["kitti_config", "campus_32beam_config", "floam_equivalent_config", "PipelineConfig"])
