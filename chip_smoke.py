@@ -6,10 +6,11 @@
 Drives the port's paths through ``make_pipeline`` at the full width of
 ``kitti_config()`` (HDL-64, 1800 azimuth, 131072-point scans) on the pinned
 v1 protocol of ``bench.py`` (``make_city_world(seed=7)``,
-``make_loop_trajectory(300, speed=1.5)``, 10 warm-up frames, drift scored at
-100-300 m; ES and the default BPF path run the first 150 frames, scored on
-100 m segments, the radius-BPF path all 300), each with every kernel launch
-count set to 0 just before it and read just after, and checks them:
+``make_loop_trajectory(speed=1.5)``, 10 warm-up frames, drift scored on
+100-300 m segments that fit the run; the radius-BPF path runs 200 frames,
+scored on 100-200 m, every other path its first 100, scored on 100 m), each
+with every kernel launch count set to 0 just before it and read just after,
+and checks them:
 
 1. device: the card's name and power limit; TF32 off;
 2. build: compiles ``pfilter_tpu_torch/csrc/*.cu`` with nvcc (ptxas
@@ -74,15 +75,37 @@ count set to 0 just before it and read just after, and checks them:
     9 digits; 100 JSONL lines; a finite, non-empty map and its .ply;
 18. checkpoint/resume: ES and default BPF run 20 frames, save the state,
     restore it into a fresh template and run 20 more: every pose equal bit
-    for bit to frames 0-39 of the runs of phases 3 and 8.
+    for bit to frames 0-39 of the runs of phases 3 and 8;
+19. ES re-associating in every outer iteration (``odometry.assoc_once=False``):
+    drift, overflow 0, kNN launches = 2 x the outer iterations of frames
+    1-99 (12 decaying to 2: 2 x 243); on the last frame's second iteration
+    (queries at the refined pose, kept in the predicted pose's tile order)
+    the kNN kernel against its plain version, bit for bit; the first 10
+    frames again with the plain kNN (poses within 1 mm / 1e-4 rad); the host
+    syncs of two more numpy-fed frames (none, gated);
+20. ES on the grid kNN index (``capacity.knn_impl=grid``, the unfused map
+    merge): drift, overflow 0, no kernel launched; the largest number of
+    points in one 1 m cell of the maps the last frame queried and of the
+    maps after it, at most ``knn_candidates_per_cell`` (32: the grid kNN was
+    exact); the grid kNN on the card against the CPU on the last frame's
+    inputs, bit for bit; the host syncs of two numpy-fed frames (none);
+21. BPF re-associating in every outer iteration behind the fast ground
+    filter (``ground.method=fast``): drift, overflow 0, kNN launches = 3 x
+    the outer iterations (3 x 243); ``fast_ground_filter`` on the card
+    against the port's CPU run of the last frame's scan (masks equal; with
+    ``normal_method=1`` too, both runs' normals within 1e-3 of a float64 TLS
+    wherever a grid's plane is determined).
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
-is present.  The last three lines are a JSON ``kernels`` record, the
-nvidia-smi line and ``{"ok": true, "device": {...}}``.
+is present.  Prints the script's wall time.  The last three lines are a
+JSON ``kernels`` record, the nvidia-smi line and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -94,12 +117,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-FRAMES = 300  # rendered scans; the radius-BPF path runs all of them
+FRAMES = 200  # rendered scans; the radius-BPF path runs all of them (100-200 m segments score)
 # The script must finish well inside the chip run's time limit, and the host
-# takes 0.4-0.75 s per frame; the earlier paths run at 150 frames (100 m
-# segments still score), the slice's kernel path at the full 300.
-ES_FRAMES = 150
-BPF_FRAMES = 150
+# takes 0.4-0.8 s per frame: ES and default BPF run 100 frames (100 m
+# segments still score), as do the three option paths of phases 19-21.
+ES_FRAMES = 100
+BPF_FRAMES = 100
+OPTION_FRAMES = 100  # ES per-iteration, ES grid, BPF per-iteration with the fast ground filter
+OPTION_PLAIN_FRAMES = 10  # ES per-iteration frames rerun with the plain kNN
+# Fast-ground TLS normals against a float64 TLS on grids whose plane is
+# determined (eigengap >= 1 % of the trace), and heights, card vs CPU: the
+# tolerances of tests/test_torch_fast_ground.py.
+NORMAL_TOL = 1e-3
+NORMAL_GAP = 1e-2
+HAG_TOL_M = 1e-6
 WARMUP = 10
 SPEED = 1.5
 AZIMUTH = 1800
@@ -441,20 +472,20 @@ def knn_frame_totals(per_shape, label):
     return tot
 
 
-def plain_knn_rerun(knn, make_pipe, frames, ref, name):
-    """The first PLAIN_FRAMES frames of a path with the plain kNN swapped in;
+def plain_knn_rerun(knn, make_pipe, frames, ref, name, n_frames=PLAIN_FRAMES):
+    """The first ``n_frames`` frames of a path with the plain kNN swapped in;
     poses held to POSE_TOL_M / POSE_TOL_RAD against the kernel run ``ref``."""
     kernel_path = knn.query_tiled_sorted
     knn.query_tiled_sorted = knn.query_tiled_sorted_plain
     try:
         plain = make_pipe()
-        for i in range(PLAIN_FRAMES):
+        for i in range(n_frames):
             plain.process_frame(*frames[i])
     finally:
         knn.query_tiled_sorted = kernel_path
     pq, pt = plain.trajectory
-    dt = float(np.max(np.linalg.norm(pt - ref["t"][:PLAIN_FRAMES], axis=1)))
-    dr = float(np.max(rotation_angle(pq, ref["q"][:PLAIN_FRAMES])))
+    dt = float(np.max(np.linalg.norm(pt - ref["t"][:n_frames], axis=1)))
+    dr = float(np.max(rotation_angle(pq, ref["q"][:n_frames])))
     log(f"  max pose difference: {dt:.3e} m, {dr:.3e} rad")
     check(dt <= POSE_TOL_M and dr <= POSE_TOL_RAD, f"{name}: plain-kNN poses differ: {dt} m, {dr} rad")
 
@@ -514,11 +545,20 @@ def profile_steady_frames(make_pipe, frames, stages, between=None):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  kernel {e.key[:70]}: {e.self_device_time_total / 1e3 / per:.2f} ms/frame, {e.count / per:.0f} launches/frame")
 
-    # Host synchronisations in a frame's dispatch (the lagged fetch put out
-    # of reach): PyTorch's sync debug mode warns at each synchronising call.
-    pipe.fetch_lag = 10**6
     first = WARMUP + PROFILE_FRAMES
-    checked = range(first, first + 4)
+    check_host_syncs(pipe, frames, range(first, first + 4), 2, "", between)
+
+
+def check_host_syncs(pipe, frames, checked, n_tensor, name, between=None):
+    """Count the call sites that synchronise the host while ``pipe`` (with
+    its lagged fetch put out of reach) dispatches the frames ``checked``: the
+    first ``n_tensor`` fed as tensors on the card, the rest as numpy scans
+    (the valid points only, as a sensor or a KITTI file gives them), with
+    ``between(pipe, scan)`` called after each frame on its numpy scan.
+    PyTorch's sync debug mode warns at each synchronising call; fail unless
+    there are none."""
+    pipe.fetch_lag = 10**6
+    first = checked[0]
     scans = {i: frames[i][0][frames[i][1]].cpu().numpy() for i in checked}  # read back before the check
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -526,7 +566,7 @@ def profile_steady_frames(make_pipe, frames, stages, between=None):
         torch.cuda.set_sync_debug_mode("warn")
         try:
             for i in checked:
-                if i < first + 2:
+                if i < first + n_tensor:
                     pipe.process_frame(*frames[i])
                 else:
                     pipe.process_frame(scans[i])
@@ -537,9 +577,10 @@ def profile_steady_frames(make_pipe, frames, stages, between=None):
     syncs = sorted(
         {f"{Path(w.filename).name}:{w.lineno}" for w in caught if "called a synchronizing CUDA operation" in str(w.message)}
     )
-    log(f"  host syncs while dispatching 4 frames (2 tensor-fed, 2 numpy-fed{', a global-map update after each' if between else ''}): "
-        f"{len(syncs)} call sites {syncs}")
-    check(not syncs, f"a frame's dispatch synchronises the host at {syncs}")
+    n_numpy = len(checked) - n_tensor
+    log(f"  {name}host syncs while dispatching {len(checked)} frames ({n_tensor} tensor-fed, {n_numpy} numpy-fed"
+        f"{', a global-map update after each' if between else ''}): {len(syncs)} call sites {syncs}")
+    check(not syncs, f"{name}a frame's dispatch synchronises the host at {syncs}")
 
 
 def run_protocol(pipe, frames, gt, metrics, n_frames):
@@ -559,7 +600,9 @@ def run_protocol(pipe, frames, gt, metrics, n_frames):
     q_est, t_est = pipe.trajectory
     est = metrics.poses_to_matrices(q_est, t_est)
     path = metrics.trajectory_distances(gt)[-1]
-    lengths = tuple(length for length in LENGTHS if length <= path * 0.8)
+    # Every protocol length the path holds, as the KITTI runner scores (the
+    # 100-frame paths, ~121 m, score their 100 m segments).
+    lengths = tuple(length for length in LENGTHS if length <= path)
     drift = metrics.kitti_drift(gt, est, lengths=lengths, step=10)
     r = dict(
         fps=(n_frames - WARMUP) / steady_s,
@@ -831,6 +874,187 @@ def resume_phase(name, cfg, frames, ref, ckpt_dir):
     check(same1 and same2, f"{name}: the resumed run differs from the uninterrupted one")
 
 
+class Recorder:
+    """While installed, keeps the arguments of the last ``keep`` calls of
+    ``module.name`` (references, no copies) and passes each call on."""
+
+    def __init__(self, module, name, keep):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.calls = collections.deque(maxlen=keep)
+
+    def __enter__(self):
+        def recorded(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def outer_iterations(cfg, n_frames):
+    """Outer iterations of frames 1 .. n_frames-1, as ``es_step`` counts
+    them: 12 after the first frame, one fewer each frame, at least 2."""
+    o, count, total = cfg.odometry, cfg.odometry.max_outer_iters, 0
+    for _ in range(1, n_frames):
+        count = max(o.min_outer_iters, count - 1)
+        total += count
+    return total
+
+
+def off_tile(knn, q, bounds, origin, params):
+    """Sorted queries whose current position lies in another tile than the
+    one they were sorted into, and the largest such move in tiles."""
+    nt, tc, _ = params
+    p = torch.arange(int(bounds[nt * nt]), dtype=torch.int32, device=q.device)
+    tid = torch.clamp(torch.searchsorted(bounds, p, right=True) - 1, 0, nt * nt - 1)
+    cur = knn._tile_ids(q[: p.shape[0]], torch.ones_like(p, dtype=torch.bool), origin, nt, tc)
+    moved = torch.maximum((cur // nt - tid // nt).abs(), (cur % nt - tid % nt).abs())
+    return int((moved > 0).sum()), int(moved.max()) if p.shape[0] else 0
+
+
+def max_cell_occupancy(grid):
+    """The largest number of valid points in one cell of a grid map."""
+    ids = grid.cell_ids[grid.valid]
+    return int(torch.unique_consecutive(ids, return_counts=True)[1].max()) if ids.numel() else 0
+
+
+def compare_grid_knn(kg, args, name):
+    """The grid kNN on the card against the same function on the CPU on the
+    same inputs: distances and indices identical."""
+    grid, q, qv, k, p = args
+    rd = kg.knn_query(grid, q, qv, k, p)
+    cpu = kg.HashGrid(*(x.cpu() for x in grid))
+    rc = kg.knn_query(cpu, q.cpu(), qv.cpu(), k, p)
+    dd, dc = rd.sqdist.cpu().numpy(), rc.sqdist.numpy()
+    fin = np.isfinite(dc)
+    err = float(np.max(np.abs(dd[fin] - dc[fin]))) if fin.any() else 0.0
+    mismatch = int((rd.idx.cpu().numpy() != rc.idx.numpy()).sum())
+    log(f"  {name}: Q={q.shape[0]} valid={int(qv.sum())} map={int(grid.valid.sum())} finite={int(fin.sum())} "
+        f"idx_mismatch={mismatch} max_abs_err={err:.3e}")
+    check(np.array_equal(dd, dc), f"{name}: grid kNN distances differ between the card and the CPU (max abs {err})")
+    check(mismatch == 0, f"{name}: {mismatch} grid kNN indices differ between the card and the CPU")
+    return time_cuda(lambda: kg.knn_query(grid, q, qv, k, p), 10)
+
+
+def compare_fast_ground(fg, xyz, valid, fcfg, name):
+    """``fast_ground_filter`` on the card against the port's CPU run of the
+    same scan: masks equal, heights within HAG_TOL_M; for the TLS normals
+    (``normal_method`` 1-3), both runs within NORMAL_TOL of a float64 TLS of
+    each grid's ground points wherever that plane is determined (at least 3
+    points, eigengap at least NORMAL_GAP of the trace), and every normal a
+    unit vector with z >= 0; two card runs bitwise equal."""
+    a = fg.fast_ground_filter(xyz, valid, fcfg)
+    a2 = fg.fast_ground_filter(xyz, valid, fcfg)
+    b = fg.fast_ground_filter(xyz.cpu(), valid.cpu(), fcfg)
+    for f in ("ground_mask", "ground_down_mask", "nonground_mask"):
+        diff = int((getattr(a, f).cpu() != getattr(b, f)).sum())
+        check(diff == 0, f"{name}: {f} differs from the CPU run in {diff} points")
+    d_hag = float((a.height_above_ground.cpu() - b.height_above_ground).abs().max())
+    same = all(torch.equal(x, y) for x, y in zip(a, a2))
+    ground = b.ground_mask.numpy()
+    na, nb = a.normal.cpu().numpy(), b.normal.numpy()
+    if fcfg.normal_method == 0:
+        d_nrm, note = float(np.abs(na - nb).max()), "normals (0, 0, 1)"
+        check(d_nrm == 0.0, f"{name}: normals differ")
+    else:
+        gid = fg.grid_layout(xyz.cpu(), valid.cpu(), fcfg)[2].numpy()
+        exact, gap, enough = fg.tls_normals_float64(xyz.cpu().numpy(), ground, gid)
+        sel = ground & enough & (gap >= NORMAL_GAP)
+        d_nrm = float(np.abs(na[sel] - nb[sel]).max())
+        d_a, d_b = float(np.abs(na[sel] - exact[sel]).max()), float(np.abs(nb[sel] - exact[sel]).max())
+        unit = bool(np.allclose(np.linalg.norm(na[ground], axis=1), 1.0, atol=1e-5) and (na[ground, 2] >= 0).all())
+        note = (f"normals on {int(sel.sum())} of {int(ground.sum())} ground points (grids whose plane is determined): "
+                f"card vs CPU {d_nrm:.3e}, card vs float64 TLS {d_a:.3e}, CPU vs float64 TLS {d_b:.3e}; unit and +z: {unit}")
+        check(unit and max(d_a, d_b) <= NORMAL_TOL, f"{name}: normals beyond {NORMAL_TOL} of the float64 TLS ({d_a}, {d_b}) or not unit")
+    log(f"  {name}: N={xyz.shape[0]} ground {int(a.ground_mask.sum())} (down {int(a.ground_down_mask.sum())}) "
+        f"non-ground {int(a.nonground_mask.sum())}; masks equal to the CPU run; |d height| {d_hag:.3e} m; {note}; run_to_run_equal={same}")
+    check(d_hag <= HAG_TOL_M, f"{name}: heights differ by {d_hag} m")
+    check(same, f"{name}: two runs on the card differ")
+    return time_cuda(lambda: fg.fast_ground_filter(xyz, valid, fcfg), 10)
+
+
+def option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches):
+    """Phases 19-21: the options ES per-iteration, ES on the grid index and
+    BPF per-iteration behind the fast ground filter, each driven through
+    ``make_pipeline`` for OPTION_FRAMES frames and gated.  Adds each path's
+    launch counts to ``launches``; returns the largest kNN kernel-vs-plain
+    difference (0: bit for bit)."""
+    from pfilter_tpu_torch.ops import fast_ground
+    from pfilter_tpu_torch.ops import knn as knn_grid
+    from pfilter_tpu_torch.ops import knn_tiled as knn
+    from pfilter_tpu_torch.pipeline import make_pipeline
+    from pfilter_tpu_torch.utils import metrics
+
+    knn_err = 0.0
+    cfg_bpf = cfg.replace(mode="bpf")
+    phase("phase 19: ES re-associating in every outer iteration (assoc_once=False, %d frames)" % OPTION_FRAMES)
+    cfg_pi = cfg.replace(odometry=dataclasses.replace(cfg.odometry, assoc_once=False))
+    pipe = make_pipeline(cfg_pi, sync=False, fetch_lag=4)
+    zero_counts()
+    with Recorder(knn, "query_tiled_sorted", 4) as rec:  # the last frame's two iterations, edge and surf
+        es_pi = run_protocol(pipe, frames, gt, metrics, OPTION_FRAMES)
+    launches["es_per_iteration"] = read_counts()
+    want = 2 * outer_iterations(cfg_pi, OPTION_FRAMES)
+    log(f"  kernel launches {launches['es_per_iteration']} (kNN wanted: 2 maps x {want // 2} outer iterations = {want})")
+    gate_protocol("es per-iteration", es_pi)
+    check(launches["es_per_iteration"]["knn_tiled"] == want, f"es per-iteration: kNN launches {launches['es_per_iteration']} != {want}")
+    check(launches["es_per_iteration"]["pca_radius"] == 0, "es per-iteration: PCA launched")
+    calls = [args for args, _ in rec.calls]
+    check(len(calls) == 4, f"es per-iteration: recorded {len(calls)} kNN calls of the last frame")
+    for kind, first, last in (("edge", calls[0], calls[2]), ("surf", calls[1], calls[3])):
+        tmap, q, bounds, nt, tc, tcap = last[:6]
+        n_q = int(bounds[nt * nt])
+        moved = float((q[:n_q] - first[1][:n_q]).norm(dim=1).max())
+        n_off, max_off = off_tile(knn, q, bounds, tmap.origin, (nt, tc, tcap))
+        log(f"  {kind}: last frame's second iteration, queries at the refined pose in the predicted pose's tile order: "
+            f"moved up to {moved:.4f} m from the first iteration's; {n_off} of {n_q} now in another tile (up to {max_off} tile)")
+        knn_err = max(knn_err, compare(knn, tmap, q, bounds, (nt, tc, tcap), f"es per-iteration {kind} map, refined pose"))
+    plain_knn_rerun(knn, lambda: make_pipeline(cfg_pi, sync=True), frames, es_pi, "es per-iteration", OPTION_PLAIN_FRAMES)
+    check_host_syncs(pipe, frames, range(OPTION_FRAMES, OPTION_FRAMES + 2), 0, "es per-iteration: ")
+
+    phase("phase 20: ES on the grid kNN index (knn_impl=grid, unfused merge, %d frames)" % OPTION_FRAMES)
+    cfg_grid = cfg.replace(capacity=dataclasses.replace(cfg.capacity, knn_impl="grid"))
+    pipe = make_pipeline(cfg_grid, sync=False, fetch_lag=4)
+    zero_counts()
+    with Recorder(knn_grid, "knn_query", 2) as rec:  # the last frame's edge and surf queries
+        es_grid = run_protocol(pipe, frames, gt, metrics, OPTION_FRAMES)
+    launches["es_grid"] = read_counts()
+    log(f"  kernel launches {launches['es_grid']}")
+    gate_protocol("es grid", es_grid)
+    check(all(v == 0 for v in launches["es_grid"].values()), f"es grid: kernels launched {launches['es_grid']}")
+    per_cell = cfg_grid.capacity.knn_candidates_per_cell
+    occupancy = {f"{kind} map queried by the last frame": max_cell_occupancy(args[0]) for kind, (args, _) in zip(("edge", "surf"), rec.calls)}
+    occupancy.update({f"{kind} map after it": max_cell_occupancy(getattr(pipe.state, kind + "_map")) for kind in ("edge", "surf")})
+    log(f"  largest points per 1 m cell {occupancy} (candidates read per cell: {per_cell})")
+    check(len(occupancy) == 4 and max(occupancy.values()) <= per_cell, f"es grid: a cell holds more than {per_cell} points: {occupancy}")
+    grid_ms = {kind: compare_grid_knn(knn_grid, args, f"grid kNN, {kind} map, last frame") for kind, (args, _) in zip(("edge", "surf"), rec.calls)}
+    log(f"  grid kNN on the card (CUDA events, 10 calls): {grid_ms} ms")
+    check_host_syncs(pipe, frames, range(OPTION_FRAMES, OPTION_FRAMES + 2), 0, "es grid: ")
+
+    phase("phase 21: BPF re-associating in every outer iteration, fast ground filter (%d frames)" % OPTION_FRAMES)
+    cfg_bpf_pi = cfg_bpf.replace(
+        odometry=dataclasses.replace(cfg.odometry, assoc_once=False), ground=dataclasses.replace(cfg.ground, method="fast")
+    )
+    pipe = make_pipeline(cfg_bpf_pi, sync=False, fetch_lag=4)
+    zero_counts()
+    bpf_pi = run_protocol(pipe, frames, gt, metrics, OPTION_FRAMES)
+    launches["bpf_per_iteration_fast"] = read_counts()
+    want = 3 * outer_iterations(cfg_bpf_pi, OPTION_FRAMES)
+    log(f"  kernel launches {launches['bpf_per_iteration_fast']} (kNN wanted: 3 maps x {want // 3} outer iterations = {want}); "
+        f"map sizes {pipe.records[-1].map_sizes.tolist()}")
+    gate_protocol("bpf per-iteration fast ground", bpf_pi)
+    check(launches["bpf_per_iteration_fast"]["knn_tiled"] == want, f"bpf per-iteration: kNN launches {launches['bpf_per_iteration_fast']} != {want}")
+    xyz_f, valid_f = frames[OPTION_FRAMES - 1]
+    fg_ms = {}
+    for label, fcfg in (("path config", cfg_bpf_pi.fast_ground), ("normal_method=1", dataclasses.replace(cfg_bpf_pi.fast_ground, normal_method=1))):
+        fg_ms[label] = compare_fast_ground(fast_ground, xyz_f, valid_f, fcfg, f"fast ground filter ({label}), last frame")
+    log(f"  fast_ground_filter on the card (CUDA events, 10 calls): {fg_ms} ms")
+    return knn_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1064,6 +1288,7 @@ def main() -> int:
             want = per_frame * (RESUME_AT - 1) + per_frame * RESUME_AT
             check(launches[f"{name}_resume"]["knn_tiled"] == want, f"{name} resume: kNN launches {launches[f'{name}_resume']} != {want}")
             log(f"  kernel launches {launches[f'{name}_resume']}")
+    knn_err = max(knn_err, option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches))
     log(f"  total wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {

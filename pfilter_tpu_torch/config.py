@@ -162,7 +162,7 @@ class CapacityConfig:
     knn_k: int = 5
     # kNN implementation: "tiled" = tiled brute-force kernel
     # (ops/knn_tiled.py, CUDA on the card); "grid" = searchsorted voxel grid
-    # (not ported yet: the port raises on it).
+    # (ops/knn.py, plain PyTorch on either device).
     knn_impl: str = "tiled"
     knn_tiles: int = 64  # NT x NT tile window
     tile_cells: int = 4  # tile edge in 1 m cells (4 m tiles)

@@ -3,8 +3,10 @@
 ``state_from_jax_numpy`` turns the reference package's ``ESState`` — given as
 nested numpy arrays, for example ``jax.device_get(state)`` — into the port's
 :class:`~pfilter_tpu_torch.models.es_odometry.ESState` on a device: the
-edge/surf ``TiledMap`` fields, pose, last pose, ``opt_count`` and the
-pose-graph window.  This is the system's counterpart of carrying weights
+edge/surf maps, pose, last pose, ``opt_count`` and the pose-graph window.
+A map is a ``TiledMap`` (``xyz, rg, valid, xyz_t, tile_start, origin``) or,
+for ``knn_impl="grid"``, a ``HashGrid`` (``xyz, rg, valid, cell_ids, origin,
+cell_size``), told apart by its fields.  This is the system's counterpart of carrying weights
 across.  :func:`state_to_numpy` goes the other way (nested dicts of numpy
 arrays, which :func:`state_from_jax_numpy` also accepts).
 :func:`bpf_state_from_jax_numpy` and :func:`bpf_state_to_numpy` do the same
@@ -26,10 +28,9 @@ import torch
 from pfilter_tpu_torch import resolve_device
 from pfilter_tpu_torch.models.bpf_odometry import BPFState
 from pfilter_tpu_torch.models.es_odometry import ESState
-from pfilter_tpu_torch.ops import knn_tiled, se3
+from pfilter_tpu_torch.ops import knn, knn_tiled, se3
 
-_MAP_FIELDS = knn_tiled.TiledMap._fields
-_DTYPES = {"valid": torch.bool, "tile_start": torch.int32}
+_DTYPES = {"valid": torch.bool, "tile_start": torch.int32, "cell_ids": torch.int32}
 
 
 def _get(obj, name):
@@ -40,8 +41,15 @@ def _tensor(x, device, dtype=torch.float32):
     return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
 
 
-def _map(m, device) -> knn_tiled.TiledMap:
-    return knn_tiled.TiledMap(**{f: _tensor(_get(m, f), device, _DTYPES.get(f, torch.float32)) for f in _MAP_FIELDS})
+def _map_type(m):
+    """``HashGrid`` if the map has grid cell ids, else ``TiledMap``."""
+    has_ids = "cell_ids" in m if isinstance(m, dict) else hasattr(m, "cell_ids")
+    return knn.HashGrid if has_ids else knn_tiled.TiledMap
+
+
+def _map(m, device):
+    cls = _map_type(m)
+    return cls(**{f: _tensor(_get(m, f), device, _DTYPES.get(f, torch.float32)) for f in cls._fields})
 
 
 def _pose(p, device) -> se3.Pose:
@@ -66,7 +74,7 @@ def _to_numpy(state, map_names) -> dict:
     def np_(x):
         return x.detach().cpu().numpy()
 
-    out = {m: {f: np_(getattr(getattr(state, m), f)) for f in _MAP_FIELDS} for m in map_names}
+    out = {m: {f: np_(x) for f, x in getattr(state, m)._asdict().items()} for m in map_names}
     out.update(
         pose={"q": np_(state.pose.q), "t": np_(state.pose.t)},
         last_pose={"q": np_(state.last_pose.q), "t": np_(state.last_pose.t)},

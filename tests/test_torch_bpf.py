@@ -165,14 +165,47 @@ def test_entry_points_and_options(runs, monkeypatch):
         BPFPipeline(tcfg.replace(mode="es"), device="cpu")
     per_iter = tcfg.replace(odometry=dataclasses.replace(tcfg.odometry, assoc_once=False))
     pipe = BPFPipeline(per_iter, device="cpu")
-    pipe.process_frame(runs["xyz"][0], runs["valid"][0])
-    with pytest.raises(NotImplementedError, match="assoc_once"):
-        pipe.process_frame(runs["xyz"][1], runs["valid"][1])
+    for i in range(2):
+        pipe.process_frame(runs["xyz"][i], runs["valid"][i])
+    q, tt = pipe.trajectory
+    assert np.isfinite(q).all() and np.isfinite(tt).all() and pipe.records[1].n_corr.sum() > 0
+    bad = tcfg.replace(capacity=dataclasses.replace(tcfg.capacity, knn_impl="kdtree"))
+    with pytest.raises(ValueError, match="knn_impl"):
+        BPFPipeline(bad, device="cpu").process_frame(runs["xyz"][0], runs["valid"][0])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_pipeline(tcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.bpf_state_from_jax_numpy(runs["carried"])
+
+
+@pytest.mark.parametrize("option", ["per_iteration_fast_ground", "grid"])
+def test_option_pipeline_matches_reference(runs, option):
+    """``assoc_once=False`` with ``ground.method="fast"`` (the per-iteration
+    loop behind the fast ground filter), and ``knn_impl="grid"``: four
+    frames of both packages' BPF pipelines on the same scans, held to the
+    slice's 1 cm / 2e-3 rad, counts to 5 % and overflow equal."""
+    jcfg = runs["jcfg"]
+    if option == "grid":
+        jcfg = jcfg.replace(capacity=dataclasses.replace(jcfg.capacity, knn_impl="grid"))
+    else:
+        jcfg = jcfg.replace(
+            odometry=dataclasses.replace(jcfg.odometry, assoc_once=False), ground=dataclasses.replace(jcfg.ground, method="fast")
+        )
+    jpipe, tpipe = JPipeline(cfg=jcfg), BPFPipeline(torch_config(jcfg), device="cpu")
+    for i in range(N_FRAMES):
+        jpipe.process_frame(runs["xyz"][i], runs["valid"][i])
+        tpipe.process_frame(runs["xyz"][i], runs["valid"][i])
+    jq, jt = jpipe.trajectory
+    tq, tt = tpipe.trajectory
+    assert np.linalg.norm(tt - jt, axis=1).max() < POS_TOL_M
+    assert rotation_angle(tq, jq).max() < ROT_TOL_RAD
+    assert metrics.ate_rmse(runs["gt"], metrics.poses_to_matrices(tq, tt)) < 0.2
+    for jr, tr in zip(jpipe.records, tpipe.records):
+        np.testing.assert_array_equal(tr.overflow, jr.overflow)
+        for a, b in zip(tr.n_corr, jr.n_corr):
+            assert abs(int(a) - int(b)) <= max(0.05 * b, 8)
+    assert tpipe.overflow_total == jpipe.overflow_total == 0
 
 
 def test_es_prefilters_match_reference(runs):

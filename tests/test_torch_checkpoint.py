@@ -223,3 +223,56 @@ def test_port_checkpoint_restores_in_reference(scans, port_run, tmp_path):
     for k, a in want.items():
         assert got[k].dtype == a.dtype, k
         np.testing.assert_array_equal(got[k], a)
+
+
+GRID_MAP_FIELDS = ("xyz", "rg", "valid", "cell_ids", "origin", "cell_size")
+
+
+def test_grid_state_checkpoints_cross_both_ways(scans, tmp_path):
+    """A grid-index ES state (``knn_impl="grid"``: ``HashGrid`` maps) saved
+    by each package restores in the other, leaf for leaf in the reference's
+    names and order, and the port's grid state steps on after a round trip
+    bit for bit."""
+    import jax
+
+    jcfg, tcfg, xyz, valid = scans
+    jcfg = jcfg.replace(capacity=replace(jcfg.capacity, knn_impl="grid"))
+    tcfg = torch_config(jcfg)
+    leaves = (
+        [f"edge_map.{f}" for f in GRID_MAP_FIELDS]
+        + [f"surf_map.{f}" for f in GRID_MAP_FIELDS]
+        + ["pose.q", "pose.t", "last_pose.q", "last_pose.t", "opt_count", "pg_q", "pg_t", "pg_h", "pg_valid"]
+    )
+    # Port -> reference.
+    state = _port_state(tcfg, xyz, valid, (1, 2))
+    checkpoint.save_state(tmp_path / "port", state, step=2)
+    meta = json.loads((tmp_path / "port" / "meta.json").read_text())
+    assert meta["leaf_names"] == leaves
+    assert meta["treedef"] == str(jax.tree_util.tree_structure(jes.init_state(jcfg)))
+    jstate, jmeta = jckpt.restore_state(tmp_path / "port", jes.init_state(jcfg))
+    assert jmeta["restored_from_template"] == []
+    got = {jckpt._leaf_name(kp): np.asarray(x) for kp, x in jax.tree_util.tree_flatten_with_path(jstate)[0]}
+    want = convert.flatten_leaves(convert.state_to_numpy(state))
+    assert list(got) == list(want) == leaves
+    for k, a in want.items():
+        assert got[k].dtype == a.dtype, k
+        np.testing.assert_array_equal(got[k], a, err_msg=k)
+    # Port -> port: the restored state steps on bit for bit.
+    restored, _ = checkpoint.restore_state(tmp_path / "port", tes.init_state(tcfg, device="cpu"))
+    assert type(restored.edge_map).__name__ == "HashGrid"
+    a, _ = tes.es_step(state, _extract(tcfg, xyz, valid, 3), tcfg)
+    b, _ = tes.es_step(restored, _extract(tcfg, xyz, valid, 3), tcfg)
+    for x, y in zip(jax.tree_util.tree_leaves(convert.state_to_numpy(a)), jax.tree_util.tree_leaves(convert.state_to_numpy(b))):
+        np.testing.assert_array_equal(x, y)
+    # Reference -> port.
+    jpipe = JPipeline(cfg=jcfg)
+    for i in range(3):
+        jpipe.process_frame(xyz[i], valid[i])
+    jckpt.save_state(tmp_path / "ref", jpipe.state, step=2)
+    tstate, tmeta = checkpoint.restore_state(tmp_path / "ref", tes.init_state(tcfg, device="cpu"))
+    assert tmeta["restored_from_template"] == [] and tmeta["leaf_names"] == leaves
+    ref = {jckpt._leaf_name(kp): np.asarray(x) for kp, x in jax.tree_util.tree_flatten_with_path(jpipe.state)[0]}
+    back = convert.flatten_leaves(convert.state_to_numpy(tstate))
+    assert list(back) == list(ref)
+    for k, x in ref.items():
+        np.testing.assert_array_equal(back[k], x, err_msg=k)

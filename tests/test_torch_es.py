@@ -159,19 +159,91 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(runs, monkeypatch):
 
 
 def test_unported_options_raise(runs):
+    """Every single-device option of the reference package runs through the
+    port's entry points (the BPF mode, the fast ground pre-filter, the
+    per-iteration outer loop, the grid kNN index); an unknown ``knn_impl``
+    or ``ground.method`` raises ``ValueError``."""
     tcfg = runs["tcfg"]
-    # The BPF slice and the ES pre-filters are ported; fast ground is not.
     assert isinstance(make_pipeline(tcfg.replace(mode="bpf"), device="cpu"), BPFPipeline)
-    fast = tcfg.replace(es_ground_filter=True, ground=dataclasses.replace(tcfg.ground, method="fast"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ESPipeline(fast, device="cpu").process_frame(runs["xyz"][0], runs["valid"][0])
     assert isinstance(make_pipeline(tcfg, device="cpu"), ESPipeline)
+    options = {
+        "fast": tcfg.replace(es_ground_filter=True, ground=dataclasses.replace(tcfg.ground, method="fast")),
+        "per_iteration": tcfg.replace(odometry=dataclasses.replace(tcfg.odometry, assoc_once=False)),
+        "grid": tcfg.replace(capacity=dataclasses.replace(tcfg.capacity, knn_impl="grid")),
+    }
+    for name, cfg in options.items():
+        pipe = make_pipeline(cfg, device="cpu")
+        for i in range(2):
+            pipe.process_frame(runs["xyz"][i], runs["valid"][i])
+        q, tt = pipe.trajectory
+        assert np.isfinite(q).all() and np.isfinite(tt).all() and pipe.n_dropped == 0, name
+        assert pipe.records[1].n_surf_corr > 0, name
+    assert type(pipe.state.edge_map).__name__ == "HashGrid"
+    bad_impl = tcfg.replace(capacity=dataclasses.replace(tcfg.capacity, knn_impl="kdtree"))
+    with pytest.raises(ValueError, match="knn_impl"):
+        ESPipeline(bad_impl, device="cpu").process_frame(runs["xyz"][0], runs["valid"][0])
+    bad_ground = options["fast"].replace(ground=dataclasses.replace(tcfg.ground, method="ransac"))
+    with pytest.raises(ValueError, match="ground.method"):
+        ESPipeline(bad_ground, device="cpu").process_frame(runs["xyz"][0], runs["valid"][0])
 
-    per_iter = tcfg.replace(odometry=dataclasses.replace(tcfg.odometry, assoc_once=False))
-    pipe = ESPipeline(per_iter, device="cpu")
-    pipe.process_frame(runs["xyz"][0], runs["valid"][0])
-    with pytest.raises(NotImplementedError, match="assoc_once"):
-        pipe.process_frame(runs["xyz"][1], runs["valid"][1])
+
+@pytest.mark.parametrize("option", ["per_iteration", "grid"])
+def test_option_pipeline_matches_reference(runs, option):
+    """``assoc_once=False`` (re-association in every outer iteration) and
+    ``knn_impl="grid"`` (the grid kNN index, the unfused merge): six frames
+    of both packages' ES pipelines on the same scans, held to the slice's
+    1 cm / 2e-3 rad and to the same overflow counters."""
+    jcfg = runs["jcfg"]
+    if option == "per_iteration":
+        jcfg = jcfg.replace(odometry=dataclasses.replace(jcfg.odometry, assoc_once=False))
+    else:
+        jcfg = jcfg.replace(capacity=dataclasses.replace(jcfg.capacity, knn_impl="grid"))
+    jpipe, tpipe = JPipeline(cfg=jcfg), ESPipeline(torch_config(jcfg), device="cpu")
+    for i in range(N_FRAMES):
+        jpipe.process_frame(runs["xyz"][i], runs["valid"][i])
+        tpipe.process_frame(runs["xyz"][i], runs["valid"][i])
+    jq, jt = jpipe.trajectory
+    tq, tt = tpipe.trajectory
+    assert np.linalg.norm(tt - jt, axis=1).max() < POS_TOL_M
+    assert rotation_angle(tq, jq).max() < ROT_TOL_RAD
+    assert np.linalg.norm(tt - runs["gt"][:, :3, 3], axis=1).max() < 0.05
+    for jr, tr in zip(jpipe.records, tpipe.records):
+        np.testing.assert_array_equal(tr.overflow, jr.overflow)
+        assert abs(tr.surf_map_size - jr.surf_map_size) <= 0.02 * jr.surf_map_size
+    if option == "grid":  # no tile sort: the tiled lanes stay 0
+        assert all(r.overflow[6] == r.overflow[7] == 0 for r in tpipe.records)
+
+
+def test_outer_variant_parity_second_world():
+    """Twin of ``tests/test_es_odometry.py::test_outer_variant_parity_second_world``
+    in the port: on a second world (seed 9, clutter), ``assoc_once=True``
+    and the per-iteration loop each track the ground truth within 25 cm and
+    each other within 8 cm."""
+    from tests.test_es_odometry import small_config
+
+    cfg = torch_config(small_config())
+    world = synthetic.make_world(seed=9, corridor_len=70.0, clutter_per_100m=4.0)
+    n_frames = 10
+    poses = synthetic.make_trajectory(n_frames, speed=0.9)
+    xyz, valid = synthetic.render_sequence(world, poses, cfg.lidar, n_azimuth=900, noise=0.005)
+    xyz, valid = np.asarray(xyz), np.asarray(valid)
+    gt = metrics.poses_to_matrices(np.asarray(poses.q), np.asarray(poses.t))
+    gt = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    trajs = {}
+    for once in (True, False):
+        c = cfg.replace(odometry=dataclasses.replace(cfg.odometry, assoc_once=once))
+        feats = [tfeat.extract_features(t(xyz[i]), t(valid[i]), c.lidar, c.features, c.capacity) for i in range(n_frames)]
+        state = tes.first_frame(tes.init_state(c, device="cpu"), feats[0], c)
+        ts = [n(state.pose.t)]
+        for i in range(1, n_frames):
+            state, _ = tes.es_step(state, feats[i], c)
+            ts.append(n(state.pose.t))
+        trajs[once] = np.stack(ts)
+    for once, ts in trajs.items():
+        err = np.linalg.norm(ts - gt[:, :3, 3], axis=1)
+        assert err.max() < 0.25, f"assoc_once={once}: max err {err.max():.3f}"
+    gap = np.linalg.norm(trajs[True] - trajs[False], axis=1)
+    assert gap.max() < 0.08, f"outer-variant divergence: {gap}"
 
 
 def test_halo_escape_count_matches(runs):

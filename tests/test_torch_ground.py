@@ -65,8 +65,15 @@ def test_dispatch():
     got = tground.segment_ground_dispatch(t(xyz), t(valid), cfg)
     want = tground.segment_ground(t(xyz), t(valid), cfg.ground)
     np.testing.assert_array_equal(n(got.ground_mask), n(want.ground_mask))
+    # "fast" runs the fast ground filter, with the reference's dispatch masks.
     fast = cfg.replace(ground=dataclasses.replace(cfg.ground, method="fast"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #16"):
-        tground.segment_ground_dispatch(t(xyz), t(valid), fast)
+    got = tground.segment_ground_dispatch(t(xyz), t(valid), fast)
+    from pfilter_tpu.config import PipelineConfig
+
+    jfast = PipelineConfig().replace(ground=dataclasses.replace(PipelineConfig().ground, method="fast"))
+    want = jground.segment_ground_dispatch(jnp.asarray(xyz), jnp.asarray(valid), jfast)
+    np.testing.assert_array_equal(n(got.ground_mask), np.asarray(want.ground_mask))
+    np.testing.assert_array_equal(n(got.nonground_mask), np.asarray(want.nonground_mask))
+    assert n(got.ground_mask).sum() > 0
     with pytest.raises(ValueError, match="unknown ground.method"):
         tground.segment_ground_dispatch(t(xyz), t(valid), cfg.replace(ground=dataclasses.replace(cfg.ground, method="x")))

@@ -128,5 +128,9 @@ def test_merge_rejects_unsupported_settings():
     idx = tms.empty_index(torch_config(_cfg()), "edge")
     with pytest.raises(ValueError, match="int32"):
         tms.merge_scan_into_index(idx, torch.zeros((8, 3)), torch.zeros((8, 2)), torch.ones(8, dtype=torch.bool), torch.zeros(3), 0.4, tcfg, "edge")
-    with pytest.raises(NotImplementedError, match="grid"):
-        tms.build_index(torch.zeros((8, 3)), torch.zeros((8, 2)), torch.ones(8, dtype=torch.bool), torch.zeros(3), torch_config(_cfg(knn_impl="grid")), "edge")
+    # The grid index builds; an unknown index raises.
+    pts = (torch.zeros((8, 3)), torch.zeros((8, 2)), torch.ones(8, dtype=torch.bool), torch.zeros(3))
+    grid = tms.build_index(*pts, torch_config(_cfg(knn_impl="grid")), "edge")
+    assert type(grid).__name__ == "HashGrid" and int(grid.valid.sum()) == 8
+    with pytest.raises(ValueError, match="knn_impl"):
+        tms.build_index(*pts, torch_config(_cfg(knn_impl="kdtree")), "edge")
