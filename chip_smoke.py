@@ -94,7 +94,19 @@ and checks them:
     the outer iterations (3 x 243); ``fast_ground_filter`` on the card
     against the port's CPU run of the last frame's scan (masks equal; with
     ``normal_method=1`` too, both runs' normals within 1e-3 of a float64 TLS
-    wherever a grid's plane is determined).
+    wherever a grid's plane is determined);
+22. the map-sharded ES step (``pfilter_tpu_torch/parallel/``) at ``n_seq =
+    n_map = 1`` through a real NCCL process group of one rank
+    (``ShardedESPipeline`` over ``make_mesh``), on the 100 frames of phase 3:
+    poses bit for bit phase 3's, drift, overflow 0, kNN launches 2 x 99, the
+    backend ``nccl``, the collectives of every frame as the step's structure
+    implies (``sharded_collectives``), and no host sync while frames 90-99
+    are dispatched; then the single-device pipeline again on frames 0-29,
+    its frames 10-29 timed beside the sharded run's;
+23. the map-sharded BPF step (default voxel front-end) at ``n_seq = n_map =
+    1`` for 50 frames: poses bit for bit the first 50 of phase 8, overflow
+    0, kNN launches 3 x 49, the collectives as implied; and the single-device
+    rerun as in 22.
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
 is present.  Prints the script's wall time.  The last three lines are a
@@ -156,6 +168,9 @@ RUNNER_MAP_STRIDE = 5
 RUNNER_SEQ = "99"
 KITTI_TR = [[0.0, -1.0, 0.0, 0.1], [0.0, 0.0, -1.0, -0.05], [1.0, 0.0, 0.0, 0.2]]  # velodyne -> cam0, an axis swap
 RESUME_AT = 20  # checkpoint after 20 frames, resume for 20
+SHARDED_BPF_FRAMES = 50  # phase 23
+SHARDED_SYNC_FRAMES = 10  # phase 22's last frames, dispatched under the sync check
+NEAR_FRAMES = 30  # the single-device reruns beside phases 22-23 (frames 10-29 timed in both)
 
 
 def log(msg: str) -> None:
@@ -1055,6 +1070,138 @@ def option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches):
     return knn_err
 
 
+def sharded_collectives(cfg, n_maps: int, opt_count):
+    """(all-gathers, all-reduces) of one frame of the map-sharded step, from
+    its structure (``parallel/es_sharded.py``): the first frame
+    (``opt_count`` None) all-reduces its map sizes once; a later frame
+    all-reduces the map sizes once, then per map all-gathers the kNN
+    candidates and the g increments and writebacks (once per frame with
+    ``assoc_once``, else in every outer iteration), all-reduces H and b in
+    each of the ``inner_gn_iters`` Gauss-Newton steps of each outer iteration
+    (and the weights' ranges once per outer iteration when ``weight_type`` >
+    0), and all-reduces its counts and overflow lanes once at the end."""
+    o = cfg.odometry
+    if opt_count is None:
+        return 0, 1
+    gathers = 2 * n_maps * (1 if o.assoc_once else opt_count)
+    return gathers, 2 + opt_count * (o.inner_gn_iters + (1 if o.weight_type else 0))
+
+
+def outer_counts(cfg, n_frames):
+    """Outer iterations of each frame 0 .. n_frames-1 (None for the first)."""
+    o, count, out = cfg.odometry, cfg.odometry.max_outer_iters, [None]
+    for _ in range(1, n_frames):
+        count = max(o.min_outer_iters, count - 1)
+        out.append(count)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def timed_frames(pipe, frames, start, stop, after=None):
+    """Dispatch frames start..stop-1 (calling ``after(i)`` after each), drain
+    the lagged fetches and wait for the card: ms/frame."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(start, stop):
+        pipe.process_frame(*frames[i])
+        if after is not None:
+            after(i)
+    pipe.flush()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (stop - start) * 1e3
+
+
+def single_device_near(make_pipeline, cfg, frames):
+    """The single-device pipeline on frames 0..NEAR_FRAMES-1, frames
+    WARMUP..NEAR_FRAMES-1 timed: the figure beside a sharded phase's."""
+    pipe = make_pipeline(cfg, sync=False, fetch_lag=4)
+    timed_frames(pipe, frames, 0, WARMUP)
+    return timed_frames(pipe, frames, WARMUP, NEAR_FRAMES)
+
+
+def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches):
+    """Phases 22-23: the map-sharded ES and BPF steps over an NCCL process
+    group of one rank on this card, each held to its single-device path of
+    phases 3 and 8 bit for bit.  Adds each path's launch counts to
+    ``launches``; returns their timing and collective records."""
+    import torch.distributed as dist
+
+    from pfilter_tpu_torch.parallel import mesh as meshlib
+    from pfilter_tpu_torch.parallel.pipeline import ShardedBPFPipeline, ShardedESPipeline
+    from pfilter_tpu_torch.pipeline import make_pipeline
+    from pfilter_tpu_torch.utils import metrics
+
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = meshlib.make_mesh(1, 1)
+        check(mesh.backend == "nccl", f"sharded: backend {mesh.backend!r}, not nccl")
+        for name, c, pipe_cls, n_frames, n_maps, ref in (
+            ("es", cfg, ShardedESPipeline, ES_FRAMES, 2, es),
+            ("bpf", cfg_bpf, ShardedBPFPipeline, SHARDED_BPF_FRAMES, 3, bpf),
+        ):
+            if name == "es":
+                phase("phase 22: map-sharded ES, n_seq = n_map = 1 over NCCL (%d frames)" % n_frames)
+            else:
+                phase("phase 23: map-sharded BPF, default front-end, n_seq = n_map = 1 over NCCL (%d frames)" % n_frames)
+            pipe = pipe_cls(c, mesh=mesh, sync=False, fetch_lag=4)
+            zero_counts()
+            mesh.reset_counts()
+            per_frame, prev = [], dict(mesh.counts)
+
+            def after(i):
+                nonlocal prev
+                cur = dict(mesh.counts)
+                per_frame.append((cur["all_gather"] - prev["all_gather"], cur["all_reduce"] - prev["all_reduce"]))
+                prev = cur
+
+            timed_frames(pipe, frames, 0, WARMUP, after)  # frame 0 builds the NCCL communicator
+            ms_near = timed_frames(pipe, frames, WARMUP, NEAR_FRAMES, after)
+            last = n_frames - SHARDED_SYNC_FRAMES if name == "es" else n_frames
+            ms_steady = (ms_near * (NEAR_FRAMES - WARMUP) + timed_frames(pipe, frames, NEAR_FRAMES, last, after) * (last - NEAR_FRAMES)) / (last - WARMUP)
+            if name == "es":
+                before = dict(mesh.counts)
+                check_host_syncs(pipe, frames, range(last, n_frames), SHARDED_SYNC_FRAMES, "es sharded: ")
+                pipe.flush()
+                per_frame.append((mesh.counts["all_gather"] - before["all_gather"], mesh.counts["all_reduce"] - before["all_reduce"]))
+            launches[f"{name}_sharded"] = read_counts()
+            q, t = pipe.trajectory
+            want = [sharded_collectives(c, n_maps, k) for k in outer_counts(c, n_frames)]
+            if name == "es":
+                tail = want[last:]
+                want = want[:last] + [(sum(w[0] for w in tail), sum(w[1] for w in tail))]
+            total = (sum(w[0] for w in per_frame), sum(w[1] for w in per_frame))
+            log(f"  backend {mesh.backend}; kernel launches {launches[f'{name}_sharded']}; collectives {total[0]} all-gathers, "
+                f"{total[1]} all-reduces (a steady frame: {per_frame[WARMUP]}, wanted {want[WARMUP]}); overflow {pipe.overflow_total}")
+            check(per_frame == want, f"{name} sharded: collectives per frame {per_frame} != {want}")
+            check(launches[f"{name}_sharded"]["knn_tiled"] == n_maps * (n_frames - 1), f"{name} sharded: kNN launches {launches[f'{name}_sharded']}")
+            check(pipe.overflow_total == 0, f"{name} sharded: overflow_total {pipe.overflow_total}")
+            same = np.array_equal(q, ref["q"][:n_frames]) and np.array_equal(t, ref["t"][:n_frames])
+            log(f"  poses equal to phase {3 if name == 'es' else 8}'s over {n_frames} frames: {same} (max |dt| {np.abs(t - ref['t'][:n_frames]).max():.3e} m)")
+            check(same, f"{name} sharded: poses differ from the single-device path's")
+            rec = dict(ms_near=ms_near, ms_steady=ms_steady, collectives=dict(all_gather=total[0], all_reduce=total[1]))
+            if name == "es":
+                est = metrics.poses_to_matrices(q, t)
+                drift = metrics.kitti_drift(gt[:n_frames], est, lengths=(100.0,), step=10)
+                rec["drift"] = drift["t_err_pct"]
+                log(f"  drift_t_pct {rec['drift']:.4f} (100 m segments: {drift['n_segments']})")
+                check(drift["n_segments"] > 0 and rec["drift"] < DRIFT_BAR, f"es sharded: drift {rec['drift']} not below {DRIFT_BAR}")
+            rec["single_ms_near"] = single_device_near(make_pipeline, c, frames)
+            log(f"  ms/frame, frames {WARMUP}-{NEAR_FRAMES - 1}: sharded {ms_near:.2f}, single-device rerun right after {rec['single_ms_near']:.2f} "
+                f"(ratio {ms_near / rec['single_ms_near']:.3f}); sharded steady over frames {WARMUP}-{last - 1}: {ms_steady:.2f}")
+            out[name] = rec
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1289,6 +1436,7 @@ def main() -> int:
             check(launches[f"{name}_resume"]["knn_tiled"] == want, f"{name} resume: kNN launches {launches[f'{name}_resume']} != {want}")
             log(f"  kernel launches {launches[f'{name}_resume']}")
     knn_err = max(knn_err, option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches))
+    sharded = sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches)
     log(f"  total wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {
@@ -1318,6 +1466,7 @@ def main() -> int:
                 },
                 "per_path_frame": knn_tot,
                 "per_frame_shapes": per_shape,
+                "sharded": sharded,
             },
             {
                 "name": "pca_radius",

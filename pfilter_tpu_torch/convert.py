@@ -9,6 +9,10 @@ for ``knn_impl="grid"``, a ``HashGrid`` (``xyz, rg, valid, cell_ids, origin,
 cell_size``), told apart by its fields.  This is the system's counterpart of carrying weights
 across.  :func:`state_to_numpy` goes the other way (nested dicts of numpy
 arrays, which :func:`state_from_jax_numpy` also accepts).
+:func:`sharded_state_from_jax_numpy` cuts one rank's block out of the
+reference's map-sharded state, ES or BPF, and
+:func:`sharded_state_to_jax_numpy` assembles that global state from every
+rank's block.
 :func:`bpf_state_from_jax_numpy` and :func:`bpf_state_to_numpy` do the same
 for a ``BPFState`` (beam, pillar and facade maps).  Nothing here imports the
 reference package: its state is read by field name.
@@ -121,6 +125,82 @@ def from_numpy_like(tree, template):
     if isinstance(template, ESState):
         return _from(ESState, tree, _ES_MAPS, template.pose.q.device)
     return _from(BPFState, tree, _BPF_MAPS, template.pose.q.device)
+
+
+_REPLICATED_GRID_FIELDS = ("origin", "cell_size")
+
+
+def _map_names(tree):
+    has_edge = "edge_map" in tree if isinstance(tree, dict) else hasattr(tree, "edge_map")
+    return (ESState, _ES_MAPS) if has_edge else (BPFState, _BPF_MAPS)
+
+
+def _check_map_layout(cfg, m, n_map: int, name: str) -> None:
+    tiled = _map_type(m) is knn_tiled.TiledMap
+    if tiled != (cfg.capacity.knn_impl == "tiled"):
+        raise ValueError(f"{name}: a {'tiled' if tiled else 'grid'} map, but cfg.capacity.knn_impl={cfg.capacity.knn_impl!r}")
+    if not tiled and np.shape(_get(m, "valid"))[-1] % n_map:
+        raise ValueError(f"{name}: grid capacity {np.shape(_get(m, 'valid'))[-1]} is not divisible by n_map={n_map}")
+
+
+def sharded_state_from_jax_numpy(tree, cfg, seq: int, shard: int, n_map: int, device=None):
+    """One rank's block of the reference package's global sharded state
+    (``pfilter_tpu.parallel`` ``ESState`` or ``BPFState``, numpy leaves) as the
+    port's state on ``device``: sequence row ``seq``, map shard ``shard``.  A
+    tiled map's leaves carry an explicit ``[n_seq, n_map, ...]`` prefix; a
+    grid map's are ``[n_seq, CAP, ...]`` arrays whose capacity axis holds
+    ``n_map`` contiguous blocks (its origin and cell size are replicated);
+    every other leaf is ``[n_seq, ...]``."""
+    cls, map_names = _map_names(tree)
+    local = {}
+    for name in map_names:
+        m = _get(tree, name)
+        _check_map_layout(cfg, m, n_map, name)
+        if _map_type(m) is knn_tiled.TiledMap:
+            local[name] = {f: np.asarray(_get(m, f))[seq, shard] for f in knn_tiled.TiledMap._fields}
+            continue
+        block = {}
+        for f in knn.HashGrid._fields:
+            x = np.asarray(_get(m, f))[seq]
+            if f not in _REPLICATED_GRID_FIELDS:
+                c = x.shape[0] // n_map
+                x = x[shard * c : (shard + 1) * c]
+            block[f] = x
+        local[name] = block
+    for name in ("pose", "last_pose"):
+        p = _get(tree, name)
+        local[name] = {"q": np.asarray(_get(p, "q"))[seq], "t": np.asarray(_get(p, "t"))[seq]}
+    for name in ("opt_count", "pg_q", "pg_t", "pg_h", "pg_valid"):
+        local[name] = np.asarray(_get(tree, name))[seq]
+    return _from(cls, local, map_names, device)
+
+
+def sharded_state_to_jax_numpy(blocks: list, n_seq: int, n_map: int) -> dict:
+    """The inverse of :func:`sharded_state_from_jax_numpy`: the reference's
+    global sharded state (nested dicts of numpy arrays) from every rank's
+    block (``to_numpy`` of each, in rank order: row-major over seq x map).
+    The replicated leaves are taken from each row's shard 0."""
+    if len(blocks) != n_seq * n_map:
+        raise ValueError(f"{len(blocks)} blocks for a {n_seq} x {n_map} grid")
+    rows = [blocks[s * n_map : (s + 1) * n_map] for s in range(n_seq)]
+    _, map_names = _map_names(blocks[0])
+    out = {}
+    for name in map_names:
+        fields = blocks[0][name]
+        tiled = "cell_ids" not in fields
+        out[name] = {}
+        for f in fields:
+            if tiled:
+                out[name][f] = np.stack([np.stack([b[name][f] for b in row]) for row in rows])
+            elif f in _REPLICATED_GRID_FIELDS:
+                out[name][f] = np.stack([row[0][name][f] for row in rows])
+            else:
+                out[name][f] = np.stack([np.concatenate([b[name][f] for b in row]) for row in rows])
+    for name in ("pose", "last_pose"):
+        out[name] = {f: np.stack([row[0][name][f] for row in rows]) for f in ("q", "t")}
+    for name in ("opt_count", "pg_q", "pg_t", "pg_h", "pg_valid"):
+        out[name] = np.stack([np.asarray(row[0][name]) for row in rows])
+    return out
 
 
 def flatten_leaves(tree: dict, prefix: str = "") -> dict:

@@ -260,17 +260,19 @@ def merge_scan_into_index(index, scan_xyz_world, scan_rg, scan_valid, pose_t, le
     return _merge_unfused(index, scan_xyz_world, scan_rg, scan_valid, pose_t, leaf, cfg.odometry, capacity, cfg.capacity.knn_cell_size)
 
 
-def _merge_unfused(grid: knn.HashGrid, scan_xyz_world, scan_rg, scan_valid, pose_t, leaf: float, ocfg, capacity: int, cell_size: float):
+def _merge_unfused(grid: knn.HashGrid, scan_xyz_world, scan_rg, scan_valid, pose_t, leaf: float, ocfg, capacity: int, cell_size: float, anchored: bool = False):
     """The grid index's merge: append the pose-transformed scan, crop +-100 m
     around the pose, rgbds re-voxelize, evict non-persistent points, age the
     survivors, re-sort into the grid anchored at the pose.  ``ocfg`` is the
-    OdometryConfig.  Returns ``(HashGrid, n_voxel_dropped)``."""
+    OdometryConfig.  ``anchored`` re-voxelizes on the absolute voxel grid
+    around the pose (``voxel.voxel_ids_anchored``), on which every map shard
+    agrees.  Returns ``(HashGrid, n_voxel_dropped)``."""
     combined = voxel.concat_pointsets(
         voxel.PointSet(xyz=grid.xyz, rg=grid.rg, valid=grid.valid),
         voxel.PointSet(xyz=scan_xyz_world, rg=scan_rg, valid=scan_valid),
     )
     combined = voxel.crop_box(combined, pose_t, ocfg.crop_half_extent)
-    ds, n_dropped = voxel.voxel_downsample_rgbds_counted(combined, leaf, out_cap=capacity)
+    ds, n_dropped = voxel.voxel_downsample_rgbds_counted(combined, leaf, out_cap=capacity, anchor_t=pose_t if anchored else None)
     ds = voxel.evict_unstable(ds, ocfg.k_new, ocfg.theta_p, ocfg.theta_max)
     ds = voxel.age_points(ds, ocfg.aging_increment, ocfg.counter_cap)
     return knn.build_grid(ds.xyz, ds.rg, ds.valid, knn.grid_origin_for_pose(pose_t, cell_size), cell_size), n_dropped

@@ -90,9 +90,11 @@ def solve_step(h: torch.Tensor, b: torch.Tensor, damping: float) -> torch.Tensor
     return torch.linalg.solve_triangular(l.T, y, upper=True)[:, 0]
 
 
-def gn_iteration(pose: se3.Pose, factor_sets, huber_delta: float, damping: float):
+def gn_iteration(pose: se3.Pose, factor_sets, huber_delta: float, damping: float, reduce=None):
     """One Gauss-Newton step over any number of factor sets.  Point weights
-    scale both the residual and the Jacobian (consistent IRLS)."""
+    scale both the residual and the Jacobian (consistent IRLS).  ``reduce``
+    maps the local ``(H, b)`` to the ones solved (the map-sharded step sums
+    them over its shards)."""
     h = torch.zeros((6, 6), dtype=torch.float32, device=pose.q.device)
     b = torch.zeros(6, dtype=torch.float32, device=pose.q.device)
     for fs in factor_sets:
@@ -107,6 +109,8 @@ def gn_iteration(pose: se3.Pose, factor_sets, huber_delta: float, damping: float
         irls = huber_irls_weight(rw, huber_delta)
         hi, bi = normal_equations(rw, jw, irls, fs.valid)
         h, b = h + hi, b + bi
+    if reduce is not None:
+        h, b = reduce(h, b)
     delta = solve_step(h, b, damping)
     return se3.pose_update_left(delta, pose), (h, b)
 

@@ -1,0 +1,294 @@
+"""Map-sharded odometry across processes, one per cell of a seq x map grid:
+the port's counterpart of ``tools/run_distributed.py``.
+
+Every process runs this module; ``torch.distributed`` joins them (NCCL on
+CUDA cards, gloo with ``--device cpu``), and the sharded step
+(``pfilter_tpu_torch/parallel/``) runs each sequence row's map across its
+``n_map`` ranks: kNN candidates and scan writebacks are all-gathered, the
+Gauss-Newton normal equations all-reduced.
+
+Launch on one host with several cards (``torchrun`` sets the ranks)::
+
+  torchrun --nproc-per-node 4 -m pfilter_tpu_torch.run_distributed --n-map 4
+  torchrun --nproc-per-node 4 -m pfilter_tpu_torch.run_distributed --n-seq 2 --n-map 2 --mode bpf
+
+or give each process its place yourself::
+
+  python -m pfilter_tpu_torch.run_distributed --device cpu --rank 0 --world-size 2 \\
+      --init-method file:///tmp/pg --preset small --frames 2
+
+Without ``--jobs`` it renders each row's scans (``--preset kitti``: the
+city world and loop of the v1 protocol at ``kitti_config()``; ``small``: a
+16-beam corridor), runs ``--frames`` frames, and rank 0 prints one JSON line
+(``distributed``, ``processes``, ``n_seq``, ``n_map``, each row's final
+pose, drift, ATE and overflow, ms/frame after two warm-up frames).
+
+With ``--jobs FILE`` it runs file in, file out: FILE is a JSON
+``{"jobs": [...]}``; each job names ``mode``, ``n_seq``, ``n_map`` (their
+product the world size), ``config`` (nested dict of ``PipelineConfig``
+fields), ``scans`` (an ``.npz`` with ``xyz [n_seq, F, N, 3]`` float32 and
+``mask [n_seq, F, N]`` bool), optionally ``states`` (frame index -> ``.npz``
+of the reference package's global sharded state as dotted leaves, from
+which each rank's block is cut before that frame), ``save_states`` (frame
+indices after which to save this rank's block) and ``out`` (a directory).
+Each rank writes ``out/rank<r>.npz``: its row's poses and diagnostics per
+frame, its saved blocks (``state<i>.<leaf>``) and its final block
+(``state.<leaf>``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from pfilter_tpu_torch import convert
+from pfilter_tpu_torch.config import (
+    CapacityConfig,
+    DCVCConfig,
+    LidarConfig,
+    OdometryConfig,
+    PipelineConfig,
+    kitti_config,
+)
+from pfilter_tpu_torch.parallel import mesh as meshlib
+from pfilter_tpu_torch.parallel.pipeline import make_sharded_pipeline
+from pfilter_tpu_torch.utils import metrics, synthetic
+
+V1_AZIMUTH = 1800  # the v1 protocol's scans (bench.py): HDL-64 at 1800 azimuth, 0.008 m range noise
+V1_NOISE = 0.008
+
+
+def config_from_dict(d: dict) -> PipelineConfig:
+    """A ``PipelineConfig`` from the nested dict of ``dataclasses.asdict``
+    (JSON lists back to tuples)."""
+    base = PipelineConfig()
+    kwargs = {}
+    for name, value in d.items():
+        ref = getattr(base, name)
+        if dataclasses.is_dataclass(ref):
+            value = type(ref)(**{k: tuple(v) if isinstance(v, list) else v for k, v in value.items()})
+        kwargs[name] = value
+    return PipelineConfig(**kwargs)
+
+
+def small_config(scan_points: int, n_map: int, mode: str) -> PipelineConfig:
+    """The 16-beam corridor config of ``tools/run_distributed.py`` (maps of
+    8192 edge and 32768 surf points per shard), with the DCVC geometry of a
+    16-beam, 512-azimuth scan so that BPF finds pillars."""
+    return PipelineConfig(
+        mode=mode,
+        lidar=LidarConfig(num_lines=16, min_distance=1.0, max_distance=60.0),
+        dcvc=DCVCConfig(delta_p=2.5, min_seg=25),
+        odometry=OdometryConfig(map_resolution=0.4, max_outer_iters=4),
+        capacity=CapacityConfig(
+            scan_points=scan_points,
+            ring_points=512,
+            edge_points=1024,
+            surf_points=scan_points,
+            ds_edge_points=1024,
+            ds_surf_points=4096,
+            edge_map_points=8192 * n_map,
+            surf_map_points=32768 * n_map,
+        ),
+    )
+
+
+def init_process_group(args) -> None:
+    """The default group: NCCL on CUDA, gloo on the CPU; the place from the
+    flags, else from ``torchrun``'s environment."""
+    if args.device != "cpu":
+        local = int(os.environ.get("LOCAL_RANK", args.rank or 0))
+        torch.cuda.set_device(local % max(torch.cuda.device_count(), 1))
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    if args.init_method is not None:
+        dist.init_process_group(backend, init_method=args.init_method, rank=args.rank, world_size=args.world_size)
+    else:
+        dist.init_process_group(backend, init_method="env://")
+
+
+def _device_arg(args):
+    return "cpu" if args.device == "cpu" else None
+
+
+def render_rows(args, cfg, mesh, n_frames: int):
+    """This rank's row's scans, rendered on its device and padded to
+    ``scan_points`` (each row its own world: the seed offset by the row),
+    and the row's ground-truth poses as 4x4 matrices relative to frame 0."""
+    dev = mesh.device
+    if args.preset == "kitti":
+        world = synthetic.make_city_world(seed=7 + mesh.seq_index)
+        poses = synthetic.make_loop_trajectory(n_frames, speed=1.5)
+        n_az, noise = V1_AZIMUTH, V1_NOISE
+    else:
+        world = synthetic.make_world(seed=3 + mesh.seq_index, corridor_len=50.0)
+        poses = synthetic.make_trajectory(n_frames, speed=0.5)
+        n_az, noise = 512, 0.005
+    xyz, valid = synthetic.render_sequence(world, poses, cfg.lidar, n_az, noise=noise, device=dev)
+    cap = cfg.capacity.scan_points
+    n = min(xyz.shape[1], cap)
+    x = torch.zeros((n_frames, cap, 3), dtype=torch.float32, device=dev)
+    v = torch.zeros((n_frames, cap), dtype=torch.bool, device=dev)
+    x[:, :n], v[:, :n] = xyz[:, :n], valid[:, :n]
+    gt = metrics.poses_to_matrices(np.asarray(poses.q), np.asarray(poses.t))
+    return x, v, np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+
+
+def _score(q, t, gt) -> list:
+    """Drift (%, v1 protocol: 100, 200, 300 m segments that fit the path,
+    every 10 frames; nan when none fits) and ATE (m) of a row's poses."""
+    path = metrics.trajectory_distances(gt)[-1]
+    est = metrics.poses_to_matrices(q, t)
+    lengths = tuple(length for length in (100.0, 200.0, 300.0) if length <= path)
+    drift = metrics.kitti_drift(gt, est, lengths=lengths, step=10)["t_err_pct"] if lengths else float("nan")
+    return [drift, metrics.ate_rmse(gt, est)]
+
+
+def run_rendered(args) -> None:
+    world = dist.get_world_size()
+    n_map = args.n_map or world // args.n_seq
+    mesh = meshlib.make_mesh(args.n_seq, n_map, device=_device_arg(args))
+    if args.preset == "kitti":
+        cfg = kitti_config().replace(mode=args.mode)
+    else:
+        cfg = small_config(args.scan_points, n_map, args.mode)
+    xyz, valid, gt = render_rows(args, cfg, mesh, args.frames)
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        from pfilter_tpu_torch.ops import _build
+
+        _build.load()  # the kernels, before any frame is timed
+    pipe = make_sharded_pipeline(cfg, mesh, sync=False, fetch_lag=4)
+    # Frame 0 builds the communicators and seeds the maps: not timed.
+    warm = 2 if args.frames > 2 else 1
+    for i in range(warm):
+        pipe.process_frame(xyz[i], valid[i])
+    pipe.flush()
+    if cuda:
+        torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    for i in range(warm, args.frames):
+        pipe.process_frame(xyz[i], valid[i])
+    pipe.flush()
+    if cuda:
+        torch.cuda.synchronize(mesh.device)
+    steady = time.perf_counter() - t0
+    q, t = pipe.trajectory
+    # Every row's final pose, drift and ATE for rank 0's line (outside the
+    # step's collectives).
+    mine = np.concatenate([q[-1], t[-1], _score(q, t, gt), [pipe.overflow_total]]).astype(np.float64)
+    every = [torch.empty(mine.shape, dtype=torch.float64, device=mesh.device) for _ in range(world)]
+    dist.all_gather(every, torch.from_numpy(mine).to(mesh.device))
+    if dist.get_rank() == 0:
+        rows = [every[s * n_map].cpu().numpy() for s in range(args.n_seq)]
+        if not all(np.isfinite(r[:7]).all() for r in rows):
+            raise RuntimeError(f"non-finite final poses {rows}")
+        print(
+            json.dumps(
+                {
+                    "distributed": "ok",
+                    "processes": world,
+                    "backend": mesh.backend,
+                    "device": torch.cuda.get_device_name(mesh.device) if cuda else "cpu",
+                    "n_seq": args.n_seq,
+                    "n_map": n_map,
+                    "mode": args.mode,
+                    "preset": args.preset,
+                    "frames": args.frames,
+                    "ms_per_frame": steady / max(args.frames - warm, 1) * 1e3,
+                    "final_pose_q": [r[:4].tolist() for r in rows],
+                    "final_pose_t": [r[4:7].tolist() for r in rows],
+                    "drift_t_pct": [float(r[7]) for r in rows],
+                    "ate_rmse_m": [float(r[8]) for r in rows],
+                    "overflow_total": [int(r[9]) for r in rows],
+                    "collectives_rank0": dict(mesh.counts),
+                }
+            ),
+            flush=True,
+        )
+
+
+def _records_arrays(records) -> dict:
+    """Per-frame arrays of an ES or BPF pipeline's records."""
+    out = {"pose_q": np.stack([r.pose_q for r in records]), "pose_t": np.stack([r.pose_t for r in records])}
+    out["overflow"] = np.stack([r.overflow for r in records])
+    if hasattr(records[0], "n_corr"):
+        out["n_corr"] = np.stack([r.n_corr for r in records])
+        out["map_sizes"] = np.stack([r.map_sizes for r in records])
+    else:
+        out["n_corr"] = np.array([[r.n_edge_corr, r.n_surf_corr] for r in records])
+        out["map_sizes"] = np.array([[r.edge_map_size, r.surf_map_size] for r in records])
+    return out
+
+
+def _block_leaves(state, prefix: str) -> dict:
+    return {f"{prefix}.{k}": v for k, v in convert.flatten_leaves(convert.to_numpy(state)).items()}
+
+
+def run_job(job: dict, device) -> None:
+    """One file-in, file-out job (see the module docstring)."""
+    cfg = config_from_dict(job["config"]).replace(mode=job["mode"])
+    mesh = meshlib.make_mesh(job["n_seq"], job["n_map"], device=device)
+    with np.load(job["scans"]) as z:
+        xyz, mask = z["xyz"][mesh.seq_index], z["mask"][mesh.seq_index]
+    states = {int(k): v for k, v in job.get("states", {}).items()}
+    save = set(job.get("save_states", []))
+    pipe = make_sharded_pipeline(cfg, mesh, sync=True)
+    saved = {}
+    for i in range(job.get("frames", xyz.shape[0])):
+        if i in states:
+            with np.load(states[i]) as z:
+                tree = convert.nest_leaves(dict(z))
+            pipe.state = convert.sharded_state_from_jax_numpy(tree, cfg, mesh.seq_index, mesh.map_index, mesh.n_map, mesh.device)
+        pipe.process_frame(torch.from_numpy(xyz[i]).to(mesh.device), torch.from_numpy(mask[i]).to(mesh.device))
+        if i in save:
+            saved.update(_block_leaves(pipe.state, f"state{i}"))
+    out = Path(job["out"])
+    out.mkdir(parents=True, exist_ok=True)
+    arrays = _records_arrays(pipe.records)
+    arrays.update(saved)
+    arrays.update(_block_leaves(pipe.state, "state"))
+    arrays["collectives"] = np.array([mesh.counts["all_gather"], mesh.counts["all_reduce"]])
+    np.savez(out / f"rank{dist.get_rank()}.npz", **arrays)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"), help="cuda (NCCL) unless cpu (gloo)")
+    ap.add_argument("--rank", type=int, default=None, help="with --init-method; else torchrun's RANK")
+    ap.add_argument("--world-size", type=int, default=None)
+    ap.add_argument("--init-method", default=None, help="e.g. tcp://host:port or file:///path; else env://")
+    ap.add_argument("--n-seq", type=int, default=1)
+    ap.add_argument("--n-map", type=int, default=0, help="map shards per row (0: world size / n_seq)")
+    ap.add_argument("--mode", default="es", choices=("es", "bpf"))
+    ap.add_argument("--preset", default="kitti", choices=("kitti", "small"))
+    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--scan-points", type=int, default=8192, help="--preset small only")
+    ap.add_argument("--jobs", default=None, help="file-in, file-out mode: a JSON list of jobs")
+    args = ap.parse_args(argv)
+    if args.init_method is not None and (args.rank is None or args.world_size is None):
+        ap.error("--init-method needs --rank and --world-size")
+
+    init_process_group(args)
+    try:
+        if args.jobs is None:
+            run_rendered(args)
+        else:
+            jobs = json.loads(Path(args.jobs).read_text())["jobs"]
+            for job in jobs:
+                run_job(job, _device_arg(args))
+            if dist.get_rank() == 0:
+                print(json.dumps({"distributed": "ok", "processes": dist.get_world_size(), "jobs": len(jobs)}), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
