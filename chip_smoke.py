@@ -6,11 +6,19 @@
 Drives the port's paths through ``make_pipeline`` at the full width of
 ``kitti_config()`` (HDL-64, 1800 azimuth, 131072-point scans) on the pinned
 v1 protocol of ``bench.py`` (``make_city_world(seed=7)``,
-``make_loop_trajectory(speed=1.5)``, 10 warm-up frames, drift scored on
+``make_loop_trajectory(speed=1.5)``, 11 warm-up frames, drift scored on
 100-300 m segments that fit the run; the radius-BPF path runs 200 frames,
 scored on 100-200 m, every other path its first 100, scored on 100 m), each
 with every kernel launch count set to 0 just before it and read just after,
-and checks them:
+and checks them.  Every single-device pipeline runs as it does by default on
+the card: frames 0-9 eagerly, frame 10 (the first whose outer iterations are
+at their floor) eagerly once more while it captures the frame as a CUDA
+graph, every later frame by replaying that graph (``graphs.py``); each such
+run must capture exactly one graph and replay it for every frame after
+frame 10 (a resumed run: capture at its first frame).  A replay counts the
+kernel launches its capture recorded, so every launch gate below holds
+through replays.  The reruns with a plain version run eagerly
+(``graphs=False``: the plain versions read sizes on the host).
 
 1. device: the card's name and power limit; TF32 off;
 2. build: compiles ``pfilter_tpu_torch/csrc/*.cu`` with nvcc (ptxas
@@ -34,10 +42,11 @@ and checks them:
    events around REPEATS eager calls (host enqueue included); CUDA-event
    times of its plain version and (a yardstick only) ``torch.cdist`` +
    ``torch.topk`` over the whole map;
-7. where a steady ES frame's time goes (torch.profiler), and the call sites
-   that synchronise the host while four frames are dispatched (two fed as
-   tensors on the card, two as numpy scans, a ``GlobalMap.update`` after
-   each): none, gated;
+7. where a steady ES frame's time goes (torch.profiler, frame 11 of an eager
+   run with a span per stage, and of a replayed run: busy share, kernels),
+   and the call sites that synchronise the host while four replayed frames
+   are dispatched (two fed as tensors on the card, two as numpy scans, a
+   ``GlobalMap.update`` after each): none, gated;
 8. BPF odometry with the default voxel front-end (``mode="bpf"``): fps,
    drift, ATE, overflow, kNN launches (= 3 x (frames - 1)), drift < 0.783 %;
 9. the kNN kernel against its plain version on that run's beam, pillar and
@@ -79,8 +88,10 @@ and checks them:
 19. ES re-associating in every outer iteration (``odometry.assoc_once=False``):
     drift, overflow 0, kNN launches = 2 x the outer iterations of frames
     1-99 (12 decaying to 2: 2 x 243); on the last frame's second iteration
-    (queries at the refined pose, kept in the predicted pose's tile order)
-    the kNN kernel against its plain version, bit for bit; the first 10
+    (queries at the refined pose, kept in the predicted pose's tile order;
+    the captured frame's tensors, which the last replay wrote, checked
+    against the state before the last frame) the kNN kernel against its
+    plain version, bit for bit; the first 10
     frames again with the plain kNN (poses within 1 mm / 1e-4 rad); the host
     syncs of two more numpy-fed frames (none, gated);
 20. ES on the grid kNN index (``capacity.knn_impl=grid``, the unfused map
@@ -102,16 +113,24 @@ and checks them:
     backend ``nccl``, the collectives of every frame as the step's structure
     implies (``sharded_collectives``), and no host sync while frames 90-99
     are dispatched; then the single-device pipeline again on frames 0-29,
-    its frames 10-29 timed beside the sharded run's;
+    its frames 11-29 timed beside the sharded run's;
 23. the map-sharded BPF step (default voxel front-end) at ``n_seq = n_map =
     1`` for 50 frames: poses bit for bit the first 50 of phase 8, overflow
     0, kNN launches 3 x 49, the collectives as implied; and the single-device
-    rerun as in 22.
+    rerun as in 22.  The sharded step runs eagerly, so 22-23 also hold the
+    eager step to the replayed one over 100 and 50 frames;
+24. eager against replayed: frames 0-29 of ES, default BPF and radius BPF
+    with ``graphs=False``, poses bit for bit those of phases 3, 8 and 11,
+    then a replayed rerun (one capture, bit for bit); frames 11-29 timed
+    in both; frame 30 of the rerun under the profiler (the device's busy
+    share, the kernels of a replayed frame, the kNN, PCA and work-list
+    kernels' time inside it); the pose graph's device time (a CUDA graph of
+    POSE_GRAPH_REPEATS calls of ``smoothed_newest``).
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
 is present.  Prints the script's wall time.  The last three lines are a
-JSON ``kernels`` record, the nvidia-smi line and ``{"ok": true, "device":
-{...}}``.
+JSON ``kernels`` record (the kNN, PCA and work-list kernels), the nvidia-smi
+line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -143,7 +162,10 @@ OPTION_PLAIN_FRAMES = 10  # ES per-iteration frames rerun with the plain kNN
 NORMAL_TOL = 1e-3
 NORMAL_GAP = 1e-2
 HAG_TOL_M = 1e-6
-WARMUP = 10
+# Frames 0-10 warm up: the first frame, the nine whose outer iterations
+# decay (11 down to 3), and frame 10, the first at the floor of 2, which runs
+# eagerly once more and captures the CUDA graph every later frame replays.
+WARMUP = 11
 SPEED = 1.5
 AZIMUTH = 1800
 LENGTHS = (100.0, 200.0, 300.0)
@@ -153,7 +175,6 @@ POSE_TOL_M = 1e-3
 POSE_TOL_RAD = 1e-4
 REPEATS = 50
 GRAPH_REPLAYS = 5  # replays of a captured graph of REPEATS calls, timed together
-PROFILE_FRAMES = 1  # the profiler and its trace processing cost ~15-30 s per profiled frame
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 FLOPS_PER_PAIR = 8  # 3 sub + 3 mul + 2 add per (query, candidate)
@@ -170,7 +191,9 @@ KITTI_TR = [[0.0, -1.0, 0.0, 0.1], [0.0, 0.0, -1.0, -0.05], [1.0, 0.0, 0.0, 0.2]
 RESUME_AT = 20  # checkpoint after 20 frames, resume for 20
 SHARDED_BPF_FRAMES = 50  # phase 23
 SHARDED_SYNC_FRAMES = 10  # phase 22's last frames, dispatched under the sync check
-NEAR_FRAMES = 30  # the single-device reruns beside phases 22-23 (frames 10-29 timed in both)
+NEAR_FRAMES = 30  # the single-device reruns beside phases 22-23 (frames 11-29 timed in both)
+EAGER_FRAMES = 30  # phase 24: frames 0-29 eager and replayed (frames 11-29 timed in both)
+POSE_GRAPH_REPEATS = 5  # phase 24: smoothed_newest calls in the CUDA graph that times it
 
 
 def log(msg: str) -> None:
@@ -295,13 +318,19 @@ def compare(knn, tmap, q, bounds, params, name):
     return err
 
 
+WORK_LIST_ERR = [0.0]  # the largest work-list difference found (kernel vs plain), over every comparison
+
+
 def compare_work_list(knn, bounds, nt, chunk, n_q, name):
     """The work-list kernel against its plain version: the same item count
     and the same items, row for row."""
     wk = knn.work_list(bounds, nt, chunk, n_q).cpu()
     wp = knn.work_list_plain(bounds.cpu(), nt, chunk, n_q)
     n_items = int(wp[0, 0])
-    check(wk.shape == wp.shape and torch.equal(wk[: 1 + n_items, :3], wp[: 1 + n_items, :3]), f"{name}: work lists differ")
+    check(wk.shape == wp.shape, f"{name}: work list shapes differ")
+    err = float((wk[: 1 + n_items, :3] - wp[: 1 + n_items, :3]).abs().max())
+    WORK_LIST_ERR[0] = max(WORK_LIST_ERR[0], err)
+    check(err == 0.0, f"{name}: work lists differ")
     return n_items
 
 
@@ -462,6 +491,10 @@ def time_knn(knn, inputs, label):
         kernel = lambda: knn._query_tiled_sorted_cuda(tmap, q, bounds, nt, tc, tcap, 5)  # noqa: E731
         row = {"device_ms": graph_ms(kernel)}
         row["work_list_device_ms"] = graph_ms(lambda: knn.work_list(bounds, nt, knn.CHUNK, q.shape[0]))
+        row["work_list_plain_ms"] = time_cuda(lambda: knn.work_list_plain(bounds, nt, knn.CHUNK, q.shape[0]), PLAIN_REPEATS)
+        n_items = int(knn.work_list_plain(bounds.cpu(), nt, knn.CHUNK, q.shape[0])[0, 0])
+        # The work list reads the tile ranges once and writes its count and items.
+        row["work_list_bound_ms"] = (4 * (nt * nt + 1) + 16 * (1 + n_items)) / HBM_BYTES_PER_S * 1e3
         row["call_ms"] = time_cuda(kernel)
         row["plain_ms"] = time_cuda(lambda: knn.query_tiled_sorted_plain(tmap, q, bounds, nt, tc, tcap, 5))
         mx = tmap.xyz[tmap.valid]
@@ -480,7 +513,7 @@ def time_knn(knn, inputs, label):
 def knn_frame_totals(per_shape, label):
     """Per-frame kNN sums over one path's maps."""
     rows = [v for k, v in per_shape.items() if k.startswith(label + "_")]
-    keys = ["device_ms", "work_list_device_ms", "call_ms", "plain_ms", "bound_ms", "cdist_topk_ms"]
+    keys = ["device_ms", "work_list_device_ms", "work_list_plain_ms", "work_list_bound_ms", "call_ms", "plain_ms", "bound_ms", "cdist_topk_ms"]
     tot = {k: sum(r[k] for r in rows) for k in keys}
     t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
     tot["bound_by"] = "bytes" if t_bytes >= tot["bound_ms"] else "operations"
@@ -488,8 +521,10 @@ def knn_frame_totals(per_shape, label):
 
 
 def plain_knn_rerun(knn, make_pipe, frames, ref, name, n_frames=PLAIN_FRAMES):
-    """The first ``n_frames`` frames of a path with the plain kNN swapped in;
-    poses held to POSE_TOL_M / POSE_TOL_RAD against the kernel run ``ref``."""
+    """The first ``n_frames`` frames of a path with the plain kNN swapped in
+    (run eagerly: the plain version reads sizes on the host, which no CUDA
+    graph can hold); poses held to POSE_TOL_M / POSE_TOL_RAD against the
+    kernel run ``ref``."""
     kernel_path = knn.query_tiled_sorted
     knn.query_tiled_sorted = knn.query_tiled_sorted_plain
     try:
@@ -505,15 +540,14 @@ def plain_knn_rerun(knn, make_pipe, frames, ref, name, n_frames=PLAIN_FRAMES):
     check(dt <= POSE_TOL_M and dr <= POSE_TOL_RAD, f"{name}: plain-kNN poses differ: {dt} m, {dr} rad")
 
 
-def profile_steady_frames(make_pipe, frames, stages, between=None):
-    """Profile frames WARMUP..WARMUP+PROFILE_FRAMES of a fresh run, with a
-    span around each stage (wrapped here, not in the package): host time per
-    stage, kernel launches per frame, and the device's busy share of the wall
-    time (profiler on, so the wall is inflated).  Then count the call sites
-    that synchronise the host while four more frames are dispatched, two fed
-    as tensors on the card and two as numpy scans (the valid points only, as
-    a sensor or a KITTI file gives them), with ``between(pipe, scan)`` called
-    after each frame on its numpy scan; fail unless there are none."""
+def profile_frame(pipe, frames, i, stages=()):
+    """Profile frame ``i`` of ``pipe`` (torch.profiler; frames before it
+    already run), with a span around each of ``stages`` (wrapped here, not
+    in the package; an eager frame only: a replay calls no Python).  Returns
+    the wall (profiler on, so inflated), the device's busy time and share,
+    the kernels the card ran and the host's launch calls (a replayed frame
+    launches its graph once), the device time of each kernel by name, and
+    each stage's host time and the device time of its kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -526,18 +560,13 @@ def profile_steady_frames(make_pipe, frames, stages, between=None):
 
         return run
 
-    pipe = make_pipe()
-    for i in range(WARMUP):
-        pipe.process_frame(*frames[i])
-    pipe.flush()
     torch.cuda.synchronize()
     try:
         for mod, name, fn in originals:
             setattr(mod, name, spanned(name, fn))
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(WARMUP, WARMUP + PROFILE_FRAMES):
-                pipe.process_frame(*frames[i])
+            pipe.process_frame(*frames[i])
             pipe.flush()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -548,20 +577,65 @@ def profile_steady_frames(make_pipe, frames, stages, between=None):
     # Device rows of the stage spans cover their whole time range, gaps
     # included; only real kernels count toward the busy time.
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith("stage::")]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
-    per = PROFILE_FRAMES
-    log(f"  wall {wall_ms / per:.1f} ms/frame (profiled); device busy {device_us / 1e3 / per:.1f} ms/frame "
-        f"= {device_us / 1e3 / wall_ms * 100:.1f} % of wall; kernel launches {launches / per:.0f}/frame")
-    for e in sorted(events, key=lambda e: -e.cpu_time_total):
-        if e.key.startswith("stage::") and e.device_type == DeviceType.CPU:
-            log(f"  stage {e.key[7:]}: host {e.cpu_time_total / 1e3 / per:.1f} ms/frame, "
-                f"its kernels {e.device_time_total / 1e3 / per:.2f} ms/frame")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"  kernel {e.key[:70]}: {e.self_device_time_total / 1e3 / per:.2f} ms/frame, {e.count / per:.0f} launches/frame")
+    by_kernel = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    busy_ms = sum(by_kernel.values())
+    stage_ms = {
+        e.key[7:]: dict(host_ms=e.cpu_time_total / 1e3, device_ms=e.device_time_total / 1e3)
+        for e in events
+        if e.key.startswith("stage::") and e.device_type == DeviceType.CPU
+    }
+    return dict(
+        wall_ms=wall_ms,
+        busy_ms=busy_ms,
+        busy_pct=busy_ms / wall_ms * 100,
+        kernels=sum(e.count for e in kernels),
+        launch_calls=sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")),
+        graph_launches=sum(e.count for e in events if e.key in ("cudaGraphLaunch", "cuGraphLaunch")),
+        by_kernel=by_kernel,
+        by_kernel_count={e.key: e.count for e in kernels},
+        stages=stage_ms,
+    )
 
-    first = WARMUP + PROFILE_FRAMES
+
+def log_profile(label, pr):
+    log(f"  {label}: wall {pr['wall_ms']:.1f} ms (profiled); device busy {pr['busy_ms']:.2f} ms = {pr['busy_pct']:.1f} % of wall; "
+        f"{pr['kernels']} kernels on the card; host launch calls {pr['launch_calls']}, graph launches {pr['graph_launches']}")
+    for name, st in sorted(pr["stages"].items(), key=lambda kv: -kv[1]["host_ms"]):
+        log(f"  stage {name}: host {st['host_ms']:.1f} ms, its kernels {st['device_ms']:.2f} ms")
+    for name, ms in sorted(pr["by_kernel"].items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  kernel {name[:70]}: {ms:.3f} ms, {pr['by_kernel_count'][name]} launches")
+
+
+def kernel_ms_in(pr, symbol):
+    """Device ms and count of the kernels whose name holds ``symbol``."""
+    hits = [k for k in pr["by_kernel"] if symbol in k]
+    return sum(pr["by_kernel"][k] for k in hits), sum(pr["by_kernel_count"][k] for k in hits)
+
+
+def profile_steady_frames(make_pipe, frames, stages, between=None):
+    """Frame WARMUP of two fresh runs under the profiler: an eager one
+    (``graphs=False``), with a span around each stage, for the host time of
+    each stage and the device time of its kernels; and one replayed from the
+    CUDA graph captured at frame WARMUP - 1, for the device's busy share and
+    the kernels of a replayed frame.  Then count the call sites that
+    synchronise the host while the replayed run dispatches four more frames,
+    two fed as tensors on the card and two as numpy scans (the valid points
+    only, as a sensor or a KITTI file gives them), with ``between(pipe,
+    scan)`` called after each frame on its numpy scan; fail unless there are
+    none.  Returns both profiles."""
+    out = {}
+    for label, graphs in (("eager", False), ("replayed", True)):
+        pipe = make_pipe(graphs)
+        for i in range(WARMUP):
+            pipe.process_frame(*frames[i])
+        pipe.flush()
+        check(len(pipe.captures) == int(graphs), f"profile: {len(pipe.captures)} captures before the {label} frame")
+        out[label] = profile_frame(pipe, frames, WARMUP, stages if not graphs else ())
+        check(pipe.replays == int(graphs), f"profile: the {label} frame was {'not ' if graphs else ''}replayed")
+        log_profile(f"{label} frame {WARMUP}", out[label])
+    first = WARMUP + 1
     check_host_syncs(pipe, frames, range(first, first + 4), 2, "", between)
+    return out
 
 
 def check_host_syncs(pipe, frames, checked, n_tensor, name, between=None):
@@ -598,16 +672,20 @@ def check_host_syncs(pipe, frames, checked, n_tensor, name, between=None):
     check(not syncs, f"{name}a frame's dispatch synchronises the host at {syncs}")
 
 
-def run_protocol(pipe, frames, gt, metrics, n_frames):
+def run_protocol(pipe, frames, gt, metrics, n_frames, keep_state_before=None):
     """Warm up, time the steady loop over ``n_frames``, score drift and ATE
-    against ``gt``."""
+    against ``gt``; with ``keep_state_before`` the state the pipeline held
+    before that frame (a state a caller keeps is never written again)."""
     gt = gt[:n_frames]
+    kept = None
     for i in range(WARMUP):
         pipe.process_frame(*frames[i])
     pipe.flush()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(WARMUP, n_frames):
+        if i == keep_state_before:
+            kept = pipe.state
         pipe.process_frame(*frames[i])
     pipe.flush()
     torch.cuda.synchronize()
@@ -631,18 +709,37 @@ def run_protocol(pipe, frames, gt, metrics, n_frames):
         dropped=pipe.n_dropped,
         q=q_est,
         t=t_est,
+        captures=list(pipe.captures),
+        replays=pipe.replays,
+        graphs=pipe.graphs,
+        n_frames=n_frames,
+        state_before=kept,
     )
-    log(f"  frames/s {r['fps']:.3f}  ms/frame {r['ms']:.2f}  (steady {n_frames - WARMUP} of {n_frames} frames)")
+    log(f"  frames/s {r['fps']:.3f}  ms/frame {r['ms']:.2f}  (steady {n_frames - WARMUP} of {n_frames} frames; "
+        f"CUDA graphs captured {len(r['captures'])}, frames replayed {r['replays']})")
+    for c in r["captures"]:
+        log(f"  capture: {c}")
     log(f"  drift_t_pct {r['drift']:.4f}  r_err_deg_per_m {r['r_err']:.6f}  segments {r['segments']}  lengths {lengths}")
     log(f"  ate_rmse_m {r['ate']:.4f}  path_m {path:.1f}  overflow_total {r['overflow']}  n_dropped {r['dropped']}")
     return r
 
 
 def gate_protocol(name, r):
-    """Zero overflow, finite poses, drift below the reference's bar."""
+    """Zero overflow, finite poses, drift below the reference's bar; a run
+    with CUDA graphs captured one and replayed it for every frame after
+    WARMUP - 1."""
+    if r["graphs"]:
+        check_graphs(name, r["captures"], r["replays"], r["n_frames"])
     check(r["overflow"] == 0, f"{name}: overflow_total {r['overflow']} != 0")
     check(np.isfinite(r["q"]).all() and np.isfinite(r["t"]).all(), f"{name}: non-finite poses")
     check(r["segments"] > 0 and r["drift"] < DRIFT_BAR, f"{name}: drift {r['drift']} not below {DRIFT_BAR}")
+
+
+def check_graphs(name, captures, replays, n_frames, first=WARMUP - 1):
+    """One CUDA graph captured (at frame ``first``), replayed for every
+    frame after it."""
+    check(len(captures) == 1, f"{name}: {len(captures)} CUDA graphs captured, not 1: {captures}")
+    check(replays == n_frames - first - 1, f"{name}: {replays} frames replayed, not {n_frames - first - 1}")
 
 
 def nonground_cloud(cfg, xyz, valid):
@@ -822,6 +919,7 @@ def kitti_runner_phase(cfg, world, root, zero_counts, read_counts):
         run_kitti.make_pipeline, run_kitti.GlobalMap = make_pipeline, global_map
     pipe = made["pipe"]
     tag = f"{RUNNER_SEQ}_run"
+    log(f"  CUDA graphs captured {len(pipe.captures)} ({pipe.captures}), frames replayed {pipe.replays}")
     log(f"  frames/s {res['fps']}  mean ms/frame {res['mean_ms']} (frames 10-{RUNNER_FRAMES - 1}, sync=True: a fetch per frame)  "
         f"drift_t_pct {res.get('drift_t_pct')}  ate_rmse_m {res.get('ate_rmse_m')}  overflow {res['overflow_total']}  device {res['device']}")
     log(f"  kernel launches {counts}")
@@ -829,6 +927,7 @@ def kitti_runner_phase(cfg, world, root, zero_counts, read_counts):
     check(res["overflow_total"] == 0, f"runner: overflow_total {res['overflow_total']} != 0")
     check(np.isfinite(res.get("drift_t_pct", np.nan)) and res["drift_t_pct"] < DRIFT_BAR, f"runner: drift {res.get('drift_t_pct')} not below {DRIFT_BAR}")
     check(counts["knn_tiled"] == 2 * (RUNNER_FRAMES - 1), f"runner: kNN launches {counts} != {2 * (RUNNER_FRAMES - 1)}")
+    check_graphs("runner", pipe.captures, pipe.replays, RUNNER_FRAMES)
 
     q, t = pipe.trajectory
     est = metrics.poses_to_matrices(q, t)
@@ -873,6 +972,7 @@ def resume_phase(name, cfg, frames, ref, ckpt_dir):
     template = es_odometry.init_state(cfg, device=dev) if name == "es" else bpf_odometry.init_state(cfg, device=dev)
     restored, meta = checkpoint.restore_state(ckpt_dir, template)
     check(meta["restored_from_template"] == [] and meta["step"] == RESUME_AT, f"{name}: restore fell back to the template: {meta}")
+    check_graphs(f"{name} before the checkpoint", first.captures, first.replays, RESUME_AT)
     resumed = (ESPipeline if name == "es" else BPFPipeline)(cfg, state=restored, sync=False, fetch_lag=4, device=dev)
     t0 = time.perf_counter()
     for i in range(RESUME_AT, 2 * RESUME_AT):
@@ -880,6 +980,7 @@ def resume_phase(name, cfg, frames, ref, ckpt_dir):
     q2, t2 = resumed.trajectory
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / RESUME_AT * 1e3
+    check_graphs(f"{name} resumed", resumed.captures, resumed.replays, RESUME_AT, first=0)
     size = sum(f.stat().st_size for f in ckpt_dir.iterdir())
     same1 = np.array_equal(q1, ref["q"][:RESUME_AT]) and np.array_equal(t1, ref["t"][:RESUME_AT])
     same2 = np.array_equal(q2, ref["q"][RESUME_AT : 2 * RESUME_AT]) and np.array_equal(t2, ref["t"][RESUME_AT : 2 * RESUME_AT])
@@ -907,6 +1008,19 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
+
+
+def recorded_are_last_frame(calls, state_before, map_names, name):
+    """The arguments a ``Recorder`` kept are the tensors of the frame that
+    was captured; every replay writes its own values into them, so after a
+    run they hold the last frame's.  Checks that the map each call queried
+    (the first calls: edge, then surf) equals the state the pipeline held
+    before the last frame."""
+    for args, map_name in zip(calls, map_names):
+        want = getattr(state_before, map_name)
+        same = all(torch.equal(getattr(args[0], f), getattr(want, f)) for f in ("xyz", "valid"))
+        check(same, f"{name}: the recorded {map_name} is not the one the last frame queried")
+    log(f"  recorded kNN inputs hold the last frame's: the maps they query equal the state before it")
 
 
 def outer_iterations(cfg, n_frames):
@@ -1009,8 +1123,8 @@ def option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches):
     cfg_pi = cfg.replace(odometry=dataclasses.replace(cfg.odometry, assoc_once=False))
     pipe = make_pipeline(cfg_pi, sync=False, fetch_lag=4)
     zero_counts()
-    with Recorder(knn, "query_tiled_sorted", 4) as rec:  # the last frame's two iterations, edge and surf
-        es_pi = run_protocol(pipe, frames, gt, metrics, OPTION_FRAMES)
+    with Recorder(knn, "query_tiled_sorted", 4) as rec:  # the captured frame's two iterations, edge and surf
+        es_pi = run_protocol(pipe, frames, gt, metrics, OPTION_FRAMES, keep_state_before=OPTION_FRAMES - 1)
     launches["es_per_iteration"] = read_counts()
     want = 2 * outer_iterations(cfg_pi, OPTION_FRAMES)
     log(f"  kernel launches {launches['es_per_iteration']} (kNN wanted: 2 maps x {want // 2} outer iterations = {want})")
@@ -1019,6 +1133,7 @@ def option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches):
     check(launches["es_per_iteration"]["pca_radius"] == 0, "es per-iteration: PCA launched")
     calls = [args for args, _ in rec.calls]
     check(len(calls) == 4, f"es per-iteration: recorded {len(calls)} kNN calls of the last frame")
+    recorded_are_last_frame(calls, es_pi["state_before"], ("edge_map", "surf_map"), "es per-iteration")
     for kind, first, last in (("edge", calls[0], calls[2]), ("surf", calls[1], calls[3])):
         tmap, q, bounds, nt, tc, tcap = last[:6]
         n_q = int(bounds[nt * nt])
@@ -1027,19 +1142,20 @@ def option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches):
         log(f"  {kind}: last frame's second iteration, queries at the refined pose in the predicted pose's tile order: "
             f"moved up to {moved:.4f} m from the first iteration's; {n_off} of {n_q} now in another tile (up to {max_off} tile)")
         knn_err = max(knn_err, compare(knn, tmap, q, bounds, (nt, tc, tcap), f"es per-iteration {kind} map, refined pose"))
-    plain_knn_rerun(knn, lambda: make_pipeline(cfg_pi, sync=True), frames, es_pi, "es per-iteration", OPTION_PLAIN_FRAMES)
+    plain_knn_rerun(knn, lambda: make_pipeline(cfg_pi, sync=True, graphs=False), frames, es_pi, "es per-iteration", OPTION_PLAIN_FRAMES)
     check_host_syncs(pipe, frames, range(OPTION_FRAMES, OPTION_FRAMES + 2), 0, "es per-iteration: ")
 
     phase("phase 20: ES on the grid kNN index (knn_impl=grid, unfused merge, %d frames)" % OPTION_FRAMES)
     cfg_grid = cfg.replace(capacity=dataclasses.replace(cfg.capacity, knn_impl="grid"))
     pipe = make_pipeline(cfg_grid, sync=False, fetch_lag=4)
     zero_counts()
-    with Recorder(knn_grid, "knn_query", 2) as rec:  # the last frame's edge and surf queries
-        es_grid = run_protocol(pipe, frames, gt, metrics, OPTION_FRAMES)
+    with Recorder(knn_grid, "knn_query", 2) as rec:  # the captured frame's edge and surf queries
+        es_grid = run_protocol(pipe, frames, gt, metrics, OPTION_FRAMES, keep_state_before=OPTION_FRAMES - 1)
     launches["es_grid"] = read_counts()
     log(f"  kernel launches {launches['es_grid']}")
     gate_protocol("es grid", es_grid)
     check(all(v == 0 for v in launches["es_grid"].values()), f"es grid: kernels launched {launches['es_grid']}")
+    recorded_are_last_frame([args for args, _ in rec.calls], es_grid["state_before"], ("edge_map", "surf_map"), "es grid")
     per_cell = cfg_grid.capacity.knn_candidates_per_cell
     occupancy = {f"{kind} map queried by the last frame": max_cell_occupancy(args[0]) for kind, (args, _) in zip(("edge", "surf"), rec.calls)}
     occupancy.update({f"{kind} map after it": max_cell_occupancy(getattr(pipe.state, kind + "_map")) for kind in ("edge", "surf")})
@@ -1123,7 +1239,9 @@ def single_device_near(make_pipeline, cfg, frames):
     WARMUP..NEAR_FRAMES-1 timed: the figure beside a sharded phase's."""
     pipe = make_pipeline(cfg, sync=False, fetch_lag=4)
     timed_frames(pipe, frames, 0, WARMUP)
-    return timed_frames(pipe, frames, WARMUP, NEAR_FRAMES)
+    ms = timed_frames(pipe, frames, WARMUP, NEAR_FRAMES)
+    check_graphs("single-device rerun", pipe.captures, pipe.replays, NEAR_FRAMES)
+    return ms
 
 
 def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches):
@@ -1199,6 +1317,62 @@ def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_c
             out[name] = rec
     finally:
         dist.destroy_process_group()
+    return out
+
+
+def eager_phase(paths, frames, phase):
+    """Phase 24: frames 0..EAGER_FRAMES-1 of each path in ``paths`` ((name,
+    config, the replayed run of its earlier phase)) run eagerly
+    (``graphs=False``) and then replayed: the eager poses equal the
+    replayed ones bit for bit, and the rerun captures one graph; frames
+    WARMUP..EAGER_FRAMES-1 timed in both, near in time; a replayed frame
+    under the profiler (the device's busy share, the kernels it runs and
+    their times; its busy time over the unprofiled replayed ms/frame, since
+    the profiler inflates a frame's wall several times); the pose graph's
+    device time, a CUDA graph of POSE_GRAPH_REPEATS calls of
+    ``smoothed_newest`` on the first eager run's last window (capturing a
+    call takes as long as an eager one, ~1 s of host time)."""
+    from pfilter_tpu_torch.ops import pose_graph
+    from pfilter_tpu_torch.pipeline import make_pipeline
+
+    phase("phase 24: eager against replayed, frames 0-%d (ES, default BPF, radius BPF)" % (EAGER_FRAMES - 1))
+    out, pg_ms = {}, None
+    for name, c, ref in paths:
+        eager = make_pipeline(c, sync=False, fetch_lag=4, graphs=False)
+        timed_frames(eager, frames, 0, WARMUP)
+        ms_eager = timed_frames(eager, frames, WARMUP, EAGER_FRAMES)
+        replayed = make_pipeline(c, sync=False, fetch_lag=4)
+        timed_frames(replayed, frames, 0, WARMUP)
+        ms_replayed = timed_frames(replayed, frames, WARMUP, EAGER_FRAMES)
+        check_graphs(f"{name} rerun", replayed.captures, replayed.replays, EAGER_FRAMES)
+        eq, et = eager.trajectory
+        rq, rt = replayed.trajectory
+        same = np.array_equal(eq, ref["q"][:EAGER_FRAMES]) and np.array_equal(et, ref["t"][:EAGER_FRAMES])
+        rerun_same = np.array_equal(rq, eq) and np.array_equal(rt, et)
+        gap = float(np.abs(et - ref["t"][:EAGER_FRAMES]).max())
+        log(f"  {name}: eager poses equal the replayed run's (one capture, {ref['replays']} frames replayed) over frames 0-{EAGER_FRAMES - 1}: "
+            f"{same} (max |dt| {gap:.3e} m); the replayed rerun equal too: {rerun_same}")
+        check(same and rerun_same, f"{name}: eager and replayed poses differ (max |dt| {gap} m)")
+        prof = profile_frame(replayed, frames, EAGER_FRAMES)
+        log_profile(f"{name} replayed frame {EAGER_FRAMES}", prof)
+        if pg_ms is None:  # every path smooths the same window shapes with the same kernels
+            st = eager.state
+            pg_ms = graph_ms(lambda: pose_graph.smoothed_newest(st.pg_q, st.pg_t, st.pg_h, st.pg_valid, st.pose, c.pose_graph), POSE_GRAPH_REPEATS)
+        rec = dict(
+            ms_eager=ms_eager, ms_replayed=ms_replayed, speedup=ms_eager / ms_replayed,
+            replayed_busy_ms=prof["busy_ms"], replayed_busy_pct=prof["busy_pct"], replayed_wall_ms=prof["wall_ms"],
+            busy_of_steady_pct=prof["busy_ms"] / ms_replayed * 100,
+            replayed_kernels=prof["kernels"], graph_launches=prof["graph_launches"], pose_graph_device_ms=pg_ms,
+            knn_in_replay=kernel_ms_in(prof, "knn_tiled_kernel"), pca_in_replay=kernel_ms_in(prof, "pca_radius_kernel"),
+            work_list_in_replay=kernel_ms_in(prof, "work_list_kernel"),
+        )
+        log(f"  {name}: ms/frame over frames {WARMUP}-{EAGER_FRAMES - 1}: eager {ms_eager:.2f}, replayed {ms_replayed:.2f} "
+            f"(x{rec['speedup']:.1f}); a replayed frame: device busy {prof['busy_ms']:.2f} ms = {rec['busy_of_steady_pct']:.1f} % of the "
+            f"unprofiled replayed ms/frame ({prof['busy_pct']:.1f} % of its profiled wall), "
+            f"{prof['kernels']} kernels; pose graph {pg_ms:.4f} ms on the card (CUDA graph of {POSE_GRAPH_REPEATS} calls, one window for every path); "
+            f"kNN in the replayed frame {rec['knn_in_replay'][0]:.4f} ms ({rec['knn_in_replay'][1]} launches), "
+            f"PCA {rec['pca_in_replay'][0]:.4f} ms ({rec['pca_in_replay'][1]}), work list {rec['work_list_in_replay'][0]:.4f} ms ({rec['work_list_in_replay'][1]})")
+        out[name] = rec
     return out
 
 
@@ -1289,12 +1463,12 @@ def main() -> int:
         knn_err = max(knn_err, compare(knn, tmap_d, q_d, b_d, surf_params, f"duplicate points, tile row {row} read twice"))
 
     phase("phase 5: first %d ES frames with the plain kNN on the card" % PLAIN_FRAMES)
-    plain_knn_rerun(knn, lambda: make_pipeline(cfg, sync=True), frames, es, "es")
+    plain_knn_rerun(knn, lambda: make_pipeline(cfg, sync=True, graphs=False), frames, es, "es")
 
     phase("phase 6: kNN times (device: CUDA graph of %d calls; call: CUDA events)" % REPEATS)
     per_shape = time_knn(knn, inputs, "es")
 
-    phase("phase 7: where an ES frame's time goes (torch.profiler, %d steady frames)" % PROFILE_FRAMES)
+    phase("phase 7: where an ES frame's time goes (torch.profiler: frame %d eager and replayed)" % WARMUP)
     gmap = GlobalMap(resolution=cfg.odometry.map_resolution, device=dev)
 
     def map_update(pipe, scan):
@@ -1302,8 +1476,9 @@ def main() -> int:
         sub = scan[:: max(1, len(scan) // 30000)]
         gmap.update(rec.pose_q, rec.pose_t, sub, np.ones(len(sub), bool))
 
-    profile_steady_frames(
-        lambda: make_pipeline(cfg, sync=False, fetch_lag=4),
+    profiles = {}
+    profiles["es"] = profile_steady_frames(
+        lambda graphs: make_pipeline(cfg, sync=False, fetch_lag=4, graphs=graphs),
         frames,
         [(features, "extract_features"), (es_odometry, "_es_outer_assoc_once"), (pose_graph, "smoothed_newest"), (map_state, "merge_scan_into_index")],
         between=map_update,
@@ -1326,7 +1501,7 @@ def main() -> int:
     per_shape.update(time_knn(knn, inputs, "bpf_voxel"))
 
     phase("phase 10: first %d default-BPF frames with the plain kNN on the card" % PLAIN_FRAMES)
-    plain_knn_rerun(knn, lambda: make_pipeline(cfg_bpf, sync=True), frames, bpf, "bpf")
+    plain_knn_rerun(knn, lambda: make_pipeline(cfg_bpf, sync=True, graphs=False), frames, bpf, "bpf")
 
     phase("phase 11: BPF odometry, radius front-end %s (v1 protocol, %d frames)" % (RADIUS_OVERRIDES, FRAMES))
     pipe = make_pipeline(cfg_rad, sync=False, fetch_lag=4)
@@ -1375,7 +1550,7 @@ def main() -> int:
     kernel_path = pr.radius_moments_sorted
     pr.radius_moments_sorted = pr.radius_moments_sorted_plain
     try:
-        plain = make_pipeline(cfg_rad, sync=True)
+        plain = make_pipeline(cfg_rad, sync=True, graphs=False)
         for i in range(PLAIN_FRAMES):
             plain.process_frame(*frames[i])
     finally:
@@ -1406,9 +1581,9 @@ def main() -> int:
     log(f"  radius_pca_moments (sort, kernel, finish) {fn_ms:.4f} ms  "
         f"(cdist < r) @ F over {cloud.shape[0]} points (yardstick) {pca_yard_ms:.4f} ms")
 
-    phase("phase 16: where a radius-BPF frame's time goes (torch.profiler, %d steady frames)" % PROFILE_FRAMES)
-    profile_steady_frames(
-        lambda: make_pipeline(cfg_rad, sync=False, fetch_lag=4),
+    phase("phase 16: where a radius-BPF frame's time goes (torch.profiler: frame %d eager and replayed)" % WARMUP)
+    profiles["bpf_radius"] = profile_steady_frames(
+        lambda graphs: make_pipeline(cfg_rad, sync=False, fetch_lag=4, graphs=graphs),
         frames,
         [
             (bpf_frontend, "run_frontend"),
@@ -1437,6 +1612,7 @@ def main() -> int:
             log(f"  kernel launches {launches[f'{name}_resume']}")
     knn_err = max(knn_err, option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches))
     sharded = sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches)
+    replay = eager_phase((("es", cfg, es), ("bpf_voxel", cfg_bpf, bpf), ("bpf_radius", cfg_rad, rad)), frames, phase)
     log(f"  total wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {
@@ -1459,14 +1635,13 @@ def main() -> int:
                 "launch_floor_call_ms": floor_call_ms,
                 "yardstick_cdist_topk_ms": knn_tot["es"]["cdist_topk_ms"],
                 "launches_by_path": {k: v["knn_tiled"] for k, v in launches.items()},
-                "work_list": {
-                    "source": "pfilter_tpu_torch/csrc/work_list.cu",
-                    "launches_by_path": {k: v["work_list"] for k, v in launches.items()},
-                    "device_ms": knn_tot["es"]["work_list_device_ms"],
-                },
                 "per_path_frame": knn_tot,
                 "per_frame_shapes": per_shape,
                 "sharded": sharded,
+                "replayed_frame_ms": {k: v["knn_in_replay"][0] for k, v in replay.items()},
+                "replayed_frame_launches": {k: v["knn_in_replay"][1] for k, v in replay.items()},
+                "replay": replay,
+                "profiles": {k: {g: {f: v[f] for f in ("wall_ms", "busy_ms", "busy_pct", "kernels", "launch_calls", "graph_launches", "stages")} for g, v in p.items()} for k, p in profiles.items()},
             },
             {
                 "name": "pca_radius",
@@ -1490,6 +1665,26 @@ def main() -> int:
                 "launches_by_path": {k: v["pca_radius"] for k, v in launches.items()},
                 "pairs": pca_pairs,
                 "in_ball": hits,
+                "replayed_frame_ms": replay["bpf_radius"]["pca_in_replay"][0],
+                "replayed_frame_launches": replay["bpf_radius"]["pca_in_replay"][1],
+            },
+            {
+                "name": "work_list",
+                "route": "cuda",
+                "source": "pfilter_tpu_torch/csrc/work_list.cu",
+                # No kernel of its own on the TPU: the work items of both
+                # kernels, in place of the Pallas grid's walk over the query
+                # tiles with their scalar-prefetched ranges.
+                "replaces": "pfilter_tpu/ops/knn_tiled.py:405",
+                "launches": launches["es"]["work_list"],
+                "max_abs_err": WORK_LIST_ERR[0],
+                "ms": knn_tot["es"]["work_list_device_ms"],
+                "plain_ms": knn_tot["es"]["work_list_plain_ms"],
+                "bound_ms": knn_tot["es"]["work_list_bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": None,
+                "launches_by_path": {k: v["work_list"] for k, v in launches.items()},
+                "replayed_frame_ms": {k: v["work_list_in_replay"][0] for k, v in replay.items()},
             },
         ]
     }

@@ -21,9 +21,9 @@ Everything is fixed-shape: one stable sort by grid id gives every point its
 rank within its grid (a running max of run starts, ``torch.cummax``); grid
 reductions write into ``G*G + 1`` rows whose last one takes the unbinned
 points and is dropped.  Sums of the normals' moments use
-``index_put_(accumulate=True)`` on the sorted grid ids, which sums each grid
-in a fixed order on the card (no float atomics), so repeated runs are
-bit-identical.  The scan's mean height and centroid are summed in float64
+``voxel.segment_add`` on the sorted grid ids, which sums each grid in a
+fixed order on the card and on the CPU (no float atomics), so repeated runs
+are bit-identical.  The scan's mean height and centroid are summed in float64
 and rounded to float32, so they do not depend on the summation order.
 """
 
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from pfilter_tpu_torch.config import FastGroundConfig
-from pfilter_tpu_torch.ops import eig3
+from pfilter_tpu_torch.ops import eig3, voxel
 
 _INVALID = 2**31 - 1
 _BIG = 3.0e38
@@ -56,8 +56,7 @@ def _segment_sum(values, seg, n_seg: int):
     """Per-segment sums of ``values`` over sorted ``seg`` (row ``n_seg`` is
     the dump row and is dropped)."""
     out = torch.zeros((n_seg + 1,) + values.shape[1:], dtype=values.dtype, device=values.device)
-    out.index_put_((seg,), values, accumulate=True)
-    return out[:n_seg]
+    return voxel.segment_add(out, seg, values)[:n_seg]
 
 
 def _segment_min(values, seg, n_seg: int):

@@ -70,7 +70,19 @@ def normal_equations(residuals, jacobians, weights, valid):
     """H = J^T W J (6x6) and b = J^T W r with row weights and a validity mask."""
     w = torch.where(valid, weights, torch.zeros_like(weights))
     jw = jacobians * w[:, None]
+    if jw.device.type == "cpu":
+        return _ordered_normal_equations(residuals, jacobians, jw)
     return jw.T @ jacobians, jw.T @ residuals
+
+
+def _ordered_normal_equations(residuals, jacobians, jw):
+    """``J^T W J`` and ``J^T W r`` on the CPU, summed row after row in
+    float64 (a running sum, ``cumsum``): the same bits on any number of
+    threads, where a BLAS product splits its sum by thread."""
+    jw64 = jw.double()
+    terms = torch.cat([(jw64[:, :, None] * jacobians.double()[:, None, :]).reshape(-1, 36), jw64 * residuals.double()[:, None]], 1)
+    total = torch.cumsum(terms, 0)[-1].float()
+    return total[:36].reshape(6, 6), total[36:]
 
 
 def cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from pfilter_tpu_torch.config import PCAClassifyConfig
-from pfilter_tpu_torch.ops import pca_classify
+from pfilter_tpu_torch.ops import pca_classify, voxel
 from pfilter_tpu_torch.ops.pca_radius import PCAMoments
 
 # Dense-table window (sensor frame): xy bounded by max lidar range (90 m),
@@ -93,8 +93,7 @@ def _build_table(xyz, valid, leaf: float, max_voxels: int) -> _VoxelTable:
     ones = sok.to(torch.float32)
     x, y, z = sloc[:, 0], sloc[:, 1], sloc[:, 2]
     feats = torch.stack([ones, x, y, z, x * x, y * y, z * z, x * y, x * z, y * z], -1) * ones[:, None]
-    mom = torch.zeros((max_voxels + 1, 10), dtype=torch.float32, device=dev)
-    mom.index_put_((seg,), feats, accumulate=True)
+    mom = voxel.segment_add(torch.zeros((max_voxels + 1, 10), dtype=torch.float32, device=dev), seg, feats)
     mom = mom[:max_voxels]
     vcell = torch.full((max_voxels + 1,), ncell, dtype=torch.int32, device=dev)
     vcell.scatter_reduce_(0, seg, torch.where(sok, scell, torch.full_like(scell, ncell)), "amin", include_self=True)
@@ -111,7 +110,7 @@ def _build_table(xyz, valid, leaf: float, max_voxels: int) -> _VoxelTable:
     rows = torch.arange(max_voxels, dtype=torch.int32, device=dev)
     row_of = torch.full((ncell + 1,), -1, dtype=torch.int32, device=dev)
     row_of.scatter_(0, vcell.long(), torch.where(occupied, rows, torch.full_like(rows, -1)))
-    row_of[ncell] = -1
+    row_of.narrow(0, ncell, 1).fill_(-1)  # a kernel: a 0-dim assignment would copy from the host
     return _VoxelTable(
         mom=mom,
         cell=vcell,

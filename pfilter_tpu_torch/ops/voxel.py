@@ -113,6 +113,18 @@ def spatial_hash(xyz: torch.Tensor, leaf: float) -> torch.Tensor:
     return h & 0x7FFFFFFF
 
 
+def segment_add(out: torch.Tensor, seg: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``out[seg] += values`` in place, rows of a repeated ``seg`` summed in
+    the order they come, on any device and any number of threads: runs are
+    bit-identical.  On CUDA, ``index_put_`` with accumulate (a sort-based
+    kernel, no float atomics); on the CPU, ``index_add_``, a serial loop,
+    since there ``index_put_`` adds float rows with atomics from several
+    threads once the work passes PyTorch's grain size."""
+    if out.device.type == "cpu":
+        return out.index_add_(0, seg, values)
+    return out.index_put_((seg,), values, accumulate=True)
+
+
 def segment_reduce_sorted(sxyz, srg, svalid, seg, cap: int):
     """Centroid, counter max and occupancy of ``cap`` segments.
 
@@ -124,12 +136,8 @@ def segment_reduce_sorted(sxyz, srg, svalid, seg, cap: int):
     seg = torch.where(keep, seg, torch.full_like(seg, cap)).long()
     ones = svalid.to(torch.float32)
     w = srg.shape[1]
-    # On CUDA, index_put_ with accumulate sums each segment in sorted order
-    # (a sort-based kernel, no float atomics), so runs are bit-identical.
-    cnt = torch.zeros(cap + 1, dtype=torch.float32, device=sxyz.device)
-    cnt.index_put_((seg,), ones, accumulate=True)
-    sums = torch.zeros(cap + 1, 3, dtype=torch.float32, device=sxyz.device)
-    sums.index_put_((seg,), sxyz * ones[:, None], accumulate=True)
+    cnt = segment_add(torch.zeros(cap + 1, dtype=torch.float32, device=sxyz.device), seg, ones)
+    sums = segment_add(torch.zeros(cap + 1, 3, dtype=torch.float32, device=sxyz.device), seg, sxyz * ones[:, None])
     rg_max = torch.zeros(cap + 1, w, dtype=torch.float32, device=sxyz.device)
     rg_max.scatter_reduce_(
         0,

@@ -3,7 +3,8 @@
 ``pipeline.ESPipeline`` and ``pipeline.BPFPipeline`` run a whole sequence:
 the same scan padding and upload, the same lagged non-blocking fetch of one
 packed row per frame, the same records.  Every rank of a row feeds the
-row's scans and gets the row's poses."""
+row's scans and gets the row's poses.  Both run every frame eagerly (no CUDA
+graph): ``graphs=True`` raises."""
 
 from __future__ import annotations
 
@@ -19,6 +20,11 @@ from pfilter_tpu_torch.pipeline import BPFPipeline, ESPipeline, _pack
 
 
 def _mesh_device(pipe) -> None:
+    """The mesh's device, and no CUDA graph: the sharded step's collectives
+    run eagerly."""
+    if pipe.graphs:
+        raise ValueError(f"{type(pipe).__name__} runs eagerly: a CUDA graph of the sharded step (NCCL inside the graph) is not built")
+    pipe.graphs = False
     if pipe.mesh is None:
         raise ValueError(f"{type(pipe).__name__} needs a mesh (parallel.mesh.make_mesh)")
     if pipe.device is None:
@@ -65,9 +71,9 @@ class ShardedBPFPipeline(BPFPipeline):
         _mesh_device(self)
         super().__post_init__()
 
-    def _register(self, xyz, masks):
-        first = self.state is None
-        state = bpf_sharded.init_sharded_state(self.cfg, self.mesh) if first else self.state
+    def _register(self, state, xyz, masks):
+        first = state is None
+        state = bpf_sharded.init_sharded_state(self.cfg, self.mesh) if first else state
         return bpf_sharded.sharded_frame(self.mesh, self.cfg, state, xyz, masks, first)
 
 

@@ -12,6 +12,14 @@ the per-frame results (pose and diagnostics, a few dozen numbers) are copied
 to pinned host memory without blocking and read ``fetch_lag`` frames later,
 after a CUDA event says they are there — the loop never waits on the frame
 it has just dispatched.
+
+On a CUDA device each pipeline runs its steady frames from a CUDA graph, as
+the reference package runs its frame as one ``jax.jit`` program
+(``graphs.py``): the first frame and the frames whose outer iterations still
+decay (``opt_count`` above ``min_outer_iters``) run eagerly, the first frame
+at the floor is captured, and every later frame with the same scan shape
+replays it.  ``graphs=False`` runs every frame eagerly; on the CPU there is
+no graph.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 
 from pfilter_tpu_torch import host_buffer, resolve_device, upload
 from pfilter_tpu_torch.config import PipelineConfig
+from pfilter_tpu_torch.graphs import FrameGraphs
 from pfilter_tpu_torch.models import bpf_frontend, bpf_odometry, es_odometry
 from pfilter_tpu_torch.ops import dcvc, features, ground
 
@@ -78,13 +87,41 @@ def _pack(pose, diag) -> torch.Tensor:
 
 
 class _HostLoop:
-    """What both pipelines share: scan padding, the lagged non-blocking fetch
-    of one packed float32 row per frame, and draining."""
+    """What both pipelines share: scan padding, the steady frame's CUDA
+    graph, the lagged non-blocking fetch of one packed float32 row per frame,
+    and draining."""
 
     def _setup(self):
         self.device = resolve_device(self.device)
         self._pending: list = []
         self._last_scan_trunc = 0
+        if self.graphs is None:
+            self.graphs = self.device.type == "cuda"
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs a CUDA device, not {self.device}: a CUDA graph runs only on the card")
+        self._graphs = FrameGraphs(type(self).__name__, self.device) if self.graphs else None
+
+    def _run_step(self, step, state, *inputs):
+        """``step(state, *inputs)``, one frame after the first: from the
+        frame's CUDA graph once the outer iterations have decayed to their
+        floor (captured at the first such frame of each scan shape), else
+        eagerly.  A frame runs ``max(floor, state.opt_count - 1)`` outer
+        iterations, so every state whose count is at most one above the
+        floor runs the same frame: it enters the graph with the floor."""
+        o = self.cfg.odometry
+        if self._graphs is None or max(o.min_outer_iters, state.opt_count - 1) != o.min_outer_iters:
+            return step(state, *inputs)
+        return self._graphs(step, state._replace(opt_count=o.min_outer_iters), *inputs)
+
+    @property
+    def captures(self) -> list:
+        """The CUDA graphs captured so far (``graphs.FrameGraphs.captures``)."""
+        return [] if self._graphs is None else self._graphs.captures
+
+    @property
+    def replays(self) -> int:
+        """Frames run by replaying a CUDA graph so far."""
+        return 0 if self._graphs is None else self._graphs.replays
 
     def _device_scan(self, xyz, valid):
         """A numpy scan padded to ``scan_points`` (truncation counted), or a
@@ -179,6 +216,8 @@ class ESPipeline(_HostLoop):
     # Ground-truth provenance mode: scans carry a per-point mover-origin mask;
     # the map's rg gains a third channel whose census lands in FrameRecord.contam.
     provenance: bool = False
+    # Steady frames from a CUDA graph: None means yes on a CUDA device.
+    graphs: Optional[bool] = None
 
     def __post_init__(self):
         if self.cfg.mode != "es":
@@ -219,42 +258,61 @@ class ESPipeline(_HostLoop):
         Returns the completed FrameRecord in sync mode; in async mode the
         record of the frame ``fetch_lag`` frames ago (or None while filling)."""
         t0 = time.perf_counter()
-        cfg = self.cfg
         xyz_d, mask_d = self._device_scan(xyz, valid)
-        mask_d = self._prefilter(xyz_d, mask_d)
-        feat = features.extract_features(xyz_d, mask_d, cfg.lidar, cfg.features, cfg.capacity)
-        mgrid = None
-        if self.provenance:
-            if mover is None:
-                raise ValueError("provenance=True needs a mover mask per scan")
-            n = xyz_d.shape[0]
-            if isinstance(mover, torch.Tensor) and mover.device.type != "cpu":
-                mover_d = torch.zeros(n, dtype=torch.bool, device=self.device)
-                m = mover.to(self.device, torch.bool)[:n]
-                mover_d[: m.shape[0]] = m  # padded like the scan
-            else:
-                m = np.asarray(mover, bool)[:n]
-                host = host_buffer((n,), torch.bool, self.device)
-                host.numpy()[: m.shape[0]] = m  # padded like the scan
-                mover_d = upload(host, self.device)
-            mgrid = features.bin_extra(xyz_d, mask_d, mover_d, self.cfg.lidar, self.cfg.capacity)
+        mover_d = self._mover(mover, xyz_d.shape[0]) if self.provenance else None
         if self.state is None:
-            state = es_odometry.init_state(self.cfg, rg_width=3 if self.provenance else 2, device=self.device)
-            self.state = es_odometry.first_frame(state, feat, self.cfg, mover=mgrid)
-            zero = torch.zeros((), dtype=torch.int32, device=self.device)
-            diag = es_odometry.FrameDiag(
-                n_edge_corr=zero,
-                n_surf_corr=zero,
-                edge_map_size=self.state.edge_map.valid.sum(),
-                surf_map_size=self.state.surf_map.valid.sum(),
-                dropped=torch.zeros((), dtype=torch.bool, device=self.device),
-                overflow=es_odometry.zero_overflow(self.device),
-                contam=es_odometry._contam(self.state.edge_map, self.state.surf_map) if self.provenance else zero,
-            )
+            self.state, row = self._seed(xyz_d, mask_d, mover_d)
         else:
-            self.state, diag = es_odometry.es_step(self.state, feat, self.cfg, mover=mgrid)
-        self._enqueue(t0, _pack(self.state.pose, diag))
+            self.state, row = self._run_step(self._frame, self.state, xyz_d, mask_d, mover_d)
+        self._enqueue(t0, row)
         return self._collect()
+
+    def _mover(self, mover, n: int) -> torch.Tensor:
+        """The provenance mask on the device, padded like the scan."""
+        if mover is None:
+            raise ValueError("provenance=True needs a mover mask per scan")
+        if isinstance(mover, torch.Tensor) and mover.device.type != "cpu":
+            mover_d = torch.zeros(n, dtype=torch.bool, device=self.device)
+            m = mover.to(self.device, torch.bool)[:n]
+            mover_d[: m.shape[0]] = m
+            return mover_d
+        m = np.asarray(mover, bool)[:n]
+        host = host_buffer((n,), torch.bool, self.device)
+        host.numpy()[: m.shape[0]] = m
+        return upload(host, self.device)
+
+    def _features(self, xyz, mask, mover):
+        """The pre-filter, feature extraction and, in provenance mode, the
+        mover mask binned as the features are."""
+        cfg = self.cfg
+        mask = self._prefilter(xyz, mask)
+        feat = features.extract_features(xyz, mask, cfg.lidar, cfg.features, cfg.capacity)
+        mgrid = None if mover is None else features.bin_extra(xyz, mask, mover, cfg.lidar, cfg.capacity)
+        return feat, mgrid
+
+    def _seed(self, xyz, mask, mover):
+        """The first frame: seeds the maps; ``(state, packed row)``."""
+        feat, mgrid = self._features(xyz, mask, mover)
+        state = es_odometry.init_state(self.cfg, rg_width=3 if self.provenance else 2, device=self.device)
+        state = es_odometry.first_frame(state, feat, self.cfg, mover=mgrid)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        diag = es_odometry.FrameDiag(
+            n_edge_corr=zero,
+            n_surf_corr=zero,
+            edge_map_size=state.edge_map.valid.sum(),
+            surf_map_size=state.surf_map.valid.sum(),
+            dropped=torch.zeros((), dtype=torch.bool, device=self.device),
+            overflow=es_odometry.zero_overflow(self.device),
+            contam=es_odometry._contam(state.edge_map, state.surf_map) if self.provenance else zero,
+        )
+        return state, _pack(state.pose, diag)
+
+    def _frame(self, state, xyz, mask, mover):
+        """The device work of a frame after the first (what its CUDA graph
+        holds): pre-filter, features, ``es_step``, the packed row."""
+        feat, mgrid = self._features(xyz, mask, mover)
+        state, diag = es_odometry.es_step(state, feat, self.cfg, mover=mgrid)
+        return state, _pack(state.pose, diag)
 
 
 @dataclass
@@ -304,6 +362,8 @@ class BPFPipeline(_HostLoop):
     sync: bool = True
     fetch_lag: int = 4
     n_dropped: int = 0
+    # Steady frames from a CUDA graph: None means yes on a CUDA device.
+    graphs: Optional[bool] = None
 
     def __post_init__(self):
         if self.cfg.mode != "bpf":
@@ -329,19 +389,27 @@ class BPFPipeline(_HostLoop):
     def process_frame(self, xyz, valid=None) -> Optional[BPFFrameRecord]:
         """Feed one sensor-frame scan; returns as :meth:`ESPipeline.process_frame`."""
         t0 = time.perf_counter()
-        cfg = self.cfg
         xyz_d, mask_d = self._device_scan(xyz, valid)
-        fr = bpf_frontend.run_frontend(xyz_d, mask_d, cfg, self.use_ground_filter, self.use_curved_filter)
-        masks = {"beam": fr.beam_mask, "pillar": fr.pillar_mask, "facade": fr.facade_mask}
-        self.state, diag = self._register(xyz_d, masks)
-        self._enqueue(t0, _pack_bpf(self.state.pose, diag.n_corr, diag.map_sizes, diag.dropped, diag.overflow, fr.n_halo_truncated))
+        if self.state is None:
+            self.state, row = self._frame(None, xyz_d, mask_d)
+        else:
+            self.state, row = self._run_step(self._frame, self.state, xyz_d, mask_d)
+        self._enqueue(t0, row)
         return self._collect()
 
-    def _register(self, xyz, masks):
+    def _frame(self, state, xyz, mask):
+        """The device work of one frame (what a steady frame's CUDA graph
+        holds): front-end, odometry, the packed row; ``(state, row)``."""
+        fr = bpf_frontend.run_frontend(xyz, mask, self.cfg, self.use_ground_filter, self.use_curved_filter)
+        masks = {"beam": fr.beam_mask, "pillar": fr.pillar_mask, "facade": fr.facade_mask}
+        state, diag = self._register(state, xyz, masks)
+        return state, _pack_bpf(state.pose, diag.n_corr, diag.map_sizes, diag.dropped, diag.overflow, fr.n_halo_truncated)
+
+    def _register(self, state, xyz, masks):
         """The odometry of one frame on the front-end's channel masks:
-        ``(state, BPFDiag)``; the first frame seeds the maps."""
-        if self.state is not None:
-            return bpf_odometry.bpf_step(self.state, xyz, masks, self.cfg)
+        ``(state, BPFDiag)``; the first frame (``state`` None) seeds the maps."""
+        if state is not None:
+            return bpf_odometry.bpf_step(state, xyz, masks, self.cfg)
         state = bpf_odometry.first_frame(bpf_odometry.init_state(self.cfg, device=self.device), xyz, masks, self.cfg)
         zeros = torch.zeros((3, 4), dtype=torch.int32, device=self.device)
         sizes = torch.stack([m.valid.sum() for m in (state.beam_map, state.pillar_map, state.facade_map)])

@@ -30,10 +30,14 @@ fields), ``scans`` (an ``.npz`` with ``xyz [n_seq, F, N, 3]`` float32 and
 ``mask [n_seq, F, N]`` bool), optionally ``states`` (frame index -> ``.npz``
 of the reference package's global sharded state as dotted leaves, from
 which each rank's block is cut before that frame), ``save_states`` (frame
-indices after which to save this rank's block) and ``out`` (a directory).
-Each rank writes ``out/rank<r>.npz``: its row's poses and diagnostics per
-frame, its saved blocks (``state<i>.<leaf>``) and its final block
-(``state.<leaf>``).
+indices after which to save this rank's block), ``checkpoint`` (``{"frame":
+i, "dir": D}``: after frame i every rank saves the run's state to the
+checkpoint directory D, ``utils.checkpoint.save_sharded_state``),
+``restore`` (``{"frame": i, "dir": D}``: the run starts at frame i from the
+checkpoint in D, ``restore_sharded_state``), ``frames`` (the frames to run
+to, default all) and ``out`` (a directory).  Each rank writes
+``out/rank<r>.npz``: its row's poses and diagnostics per frame run, its
+saved blocks (``state<i>.<leaf>``) and its final block (``state.<leaf>``).
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ from pfilter_tpu_torch.config import (
 )
 from pfilter_tpu_torch.parallel import mesh as meshlib
 from pfilter_tpu_torch.parallel.pipeline import make_sharded_pipeline
-from pfilter_tpu_torch.utils import metrics, synthetic
+from pfilter_tpu_torch.utils import checkpoint, metrics, synthetic
 
 V1_AZIMUTH = 1800  # the v1 protocol's scans (bench.py): HDL-64 at 1800 azimuth, 0.008 m range noise
 V1_NOISE = 0.008
@@ -240,9 +244,14 @@ def run_job(job: dict, device) -> None:
         xyz, mask = z["xyz"][mesh.seq_index], z["mask"][mesh.seq_index]
     states = {int(k): v for k, v in job.get("states", {}).items()}
     save = set(job.get("save_states", []))
+    ckpt, restore = job.get("checkpoint"), job.get("restore")
     pipe = make_sharded_pipeline(cfg, mesh, sync=True)
+    start = 0
+    if restore is not None:
+        start = restore["frame"]
+        pipe.state, _ = checkpoint.restore_sharded_state(restore["dir"], cfg, mesh)
     saved = {}
-    for i in range(job.get("frames", xyz.shape[0])):
+    for i in range(start, job.get("frames", xyz.shape[0])):
         if i in states:
             with np.load(states[i]) as z:
                 tree = convert.nest_leaves(dict(z))
@@ -250,6 +259,8 @@ def run_job(job: dict, device) -> None:
         pipe.process_frame(torch.from_numpy(xyz[i]).to(mesh.device), torch.from_numpy(mask[i]).to(mesh.device))
         if i in save:
             saved.update(_block_leaves(pipe.state, f"state{i}"))
+        if ckpt is not None and i == ckpt["frame"]:
+            checkpoint.save_sharded_state(ckpt["dir"], pipe.state, mesh, step=i + 1, extra={"mode": cfg.mode})
     out = Path(job["out"])
     out.mkdir(parents=True, exist_ok=True)
     arrays = _records_arrays(pipe.records)
