@@ -10,14 +10,15 @@ v1 protocol of ``bench.py`` (``make_city_world(seed=7)``,
 100-300 m segments that fit the run; the radius-BPF path runs 200 frames,
 scored on 100-200 m, every other path its first 100, scored on 100 m), each
 with every kernel launch count set to 0 just before it and read just after,
-and checks them.  Every single-device pipeline runs as it does by default on
-the card: frames 0-9 eagerly, frame 10 (the first whose outer iterations are
-at their floor) eagerly once more while it captures the frame as a CUDA
-graph, every later frame by replaying that graph (``graphs.py``); each such
-run must capture exactly one graph and replay it for every frame after
-frame 10 (a resumed run: capture at its first frame).  A replay counts the
-kernel launches its capture recorded, so every launch gate below holds
-through replays.  The reruns with a plain version run eagerly
+and checks them.  Every pipeline, single-device or map-sharded, runs as it
+does by default on the card: frames 0-9 eagerly, frame 10 (the first whose
+outer iterations are at their floor) eagerly once more while it captures
+the frame as a CUDA graph, every later frame by replaying that graph
+(``graphs.py``); each such run must capture exactly one graph and replay it
+for every frame after frame 10 (a resumed run: capture at its first frame).
+A replay counts the kernel launches (and, in a sharded frame, the
+collectives) its capture recorded, so every launch and collective gate
+below holds through replays.  The reruns with a plain version run eagerly
 (``graphs=False``: the plain versions read sizes on the host).
 
 1. device: the card's name and power limit; TF32 off;
@@ -108,24 +109,33 @@ through replays.  The reruns with a plain version run eagerly
     wherever a grid's plane is determined);
 22. the map-sharded ES step (``pfilter_tpu_torch/parallel/``) at ``n_seq =
     n_map = 1`` through a real NCCL process group of one rank
-    (``ShardedESPipeline`` over ``make_mesh``), on the 100 frames of phase 3:
-    poses bit for bit phase 3's, drift, overflow 0, kNN launches 2 x 99, the
-    backend ``nccl``, the collectives of every frame as the step's structure
-    implies (``sharded_collectives``), and no host sync while frames 90-99
-    are dispatched; then the single-device pipeline again on frames 0-29,
-    its frames 11-29 timed beside the sharded run's;
+    (``ShardedESPipeline`` over ``make_mesh``), on the 100 frames of phase 3,
+    replayed as the single-device runs are (one capture at frame 10, its
+    NCCL collectives inside the graph, every later frame replayed): poses
+    bit for bit phase 3's, drift, overflow 0, kNN launches 2 x 99 and the
+    collectives of every frame as the step's structure implies
+    (``sharded_collectives``), both counted through replays, the backend
+    ``nccl``, and no host sync while frames 90-99 are dispatched; then the
+    single-device pipeline again on frames 0-29, its frames 11-29 timed
+    beside the sharded run's;
 23. the map-sharded BPF step (default voxel front-end) at ``n_seq = n_map =
-    1`` for 50 frames: poses bit for bit the first 50 of phase 8, overflow
-    0, kNN launches 3 x 49, the collectives as implied; and the single-device
-    rerun as in 22.  The sharded step runs eagerly, so 22-23 also hold the
-    eager step to the replayed one over 100 and 50 frames;
+    1`` for 50 frames, replayed likewise: poses bit for bit the first 50 of
+    phase 8, overflow 0, kNN launches 3 x 49, the collectives as implied, no
+    host sync while frames 40-49 are dispatched; and the single-device rerun
+    as in 22;
 24. eager against replayed: frames 0-29 of ES, default BPF and radius BPF
     with ``graphs=False``, poses bit for bit those of phases 3, 8 and 11,
     then a replayed rerun (one capture, bit for bit); frames 11-29 timed
     in both; frame 30 of the rerun under the profiler (the device's busy
     share, the kernels of a replayed frame, the kNN, PCA and work-list
     kernels' time inside it); the pose graph's device time (a CUDA graph of
-    POSE_GRAPH_REPEATS calls of ``smoothed_newest``).
+    POSE_GRAPH_REPEATS calls of ``smoothed_newest``);
+25. the map-sharded steps eager against replayed, over a new NCCL group of
+    one rank: frames 0-29 of sharded ES and BPF with ``graphs=False``, poses
+    bit for bit those of phases 22-23, then a replayed rerun (one capture,
+    bit for bit); frames 11-29 timed in both, beside a replayed
+    single-device rerun; frame 30 of each rerun under the profiler (busy
+    share, kernels, the NCCL kernels' and the kNN kernel's time in it).
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
 is present.  Prints the script's wall time.  The last three lines are a
@@ -189,10 +199,10 @@ RUNNER_MAP_STRIDE = 5
 RUNNER_SEQ = "99"
 KITTI_TR = [[0.0, -1.0, 0.0, 0.1], [0.0, 0.0, -1.0, -0.05], [1.0, 0.0, 0.0, 0.2]]  # velodyne -> cam0, an axis swap
 RESUME_AT = 20  # checkpoint after 20 frames, resume for 20
-SHARDED_BPF_FRAMES = 50  # phase 23
-SHARDED_SYNC_FRAMES = 10  # phase 22's last frames, dispatched under the sync check
-NEAR_FRAMES = 30  # the single-device reruns beside phases 22-23 (frames 11-29 timed in both)
-EAGER_FRAMES = 30  # phase 24: frames 0-29 eager and replayed (frames 11-29 timed in both)
+SHARDED_BPF_FRAMES = 50  # phase 23 (replayed, as phase 22)
+SHARDED_SYNC_FRAMES = 10  # the last frames of phases 22 and 23, replayed under the sync check
+NEAR_FRAMES = 30  # the single-device reruns beside phases 22-23 and 25 (frames 11-29 timed in both)
+EAGER_FRAMES = 30  # phases 24-25: frames 0-29 eager and replayed (frames 11-29 timed in both)
 POSE_GRAPH_REPEATS = 5  # phase 24: smoothed_newest calls in the CUDA graph that times it
 
 
@@ -1244,31 +1254,47 @@ def single_device_near(make_pipeline, cfg, frames):
     return ms
 
 
-def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches):
-    """Phases 22-23: the map-sharded ES and BPF steps over an NCCL process
-    group of one rank on this card, each held to its single-device path of
-    phases 3 and 8 bit for bit.  Adds each path's launch counts to
-    ``launches``; returns their timing and collective records."""
+def nccl_group():
+    """An NCCL process group of one rank on this card (``tcp://127.0.0.1`` at
+    a free port) and its 1 x 1 mesh; destroy the group after use."""
     import torch.distributed as dist
 
     from pfilter_tpu_torch.parallel import mesh as meshlib
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    mesh = meshlib.make_mesh(1, 1)
+    check(mesh.backend == "nccl", f"sharded: backend {mesh.backend!r}, not nccl")
+    return mesh
+
+
+def sharded_paths(cfg, cfg_bpf, es, bpf):
+    """(name, config, pipeline class, frames, maps, single-device run) of
+    phases 22-23 and 25."""
     from pfilter_tpu_torch.parallel.pipeline import ShardedBPFPipeline, ShardedESPipeline
+
+    return (("es", cfg, ShardedESPipeline, ES_FRAMES, 2, es), ("bpf", cfg_bpf, ShardedBPFPipeline, SHARDED_BPF_FRAMES, 3, bpf))
+
+
+def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches):
+    """Phases 22-23: the map-sharded ES and BPF steps over an NCCL process
+    group of one rank on this card, replayed from a CUDA graph with their
+    collectives from frame 11 on, each held to its single-device path of
+    phases 3 and 8 bit for bit.  Adds each path's launch counts to
+    ``launches``; returns their timing and collective records, and their
+    poses."""
+    import torch.distributed as dist
+
     from pfilter_tpu_torch.pipeline import make_pipeline
     from pfilter_tpu_torch.utils import metrics
 
-    out = {}
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    out, poses = {}, {}
+    mesh = nccl_group()
     try:
-        mesh = meshlib.make_mesh(1, 1)
-        check(mesh.backend == "nccl", f"sharded: backend {mesh.backend!r}, not nccl")
-        for name, c, pipe_cls, n_frames, n_maps, ref in (
-            ("es", cfg, ShardedESPipeline, ES_FRAMES, 2, es),
-            ("bpf", cfg_bpf, ShardedBPFPipeline, SHARDED_BPF_FRAMES, 3, bpf),
-        ):
+        for name, c, pipe_cls, n_frames, n_maps, ref in sharded_paths(cfg, cfg_bpf, es, bpf):
             if name == "es":
-                phase("phase 22: map-sharded ES, n_seq = n_map = 1 over NCCL (%d frames)" % n_frames)
+                phase("phase 22: map-sharded ES, n_seq = n_map = 1 over NCCL, replayed (%d frames)" % n_frames)
             else:
-                phase("phase 23: map-sharded BPF, default front-end, n_seq = n_map = 1 over NCCL (%d frames)" % n_frames)
+                phase("phase 23: map-sharded BPF, default front-end, n_seq = n_map = 1 over NCCL, replayed (%d frames)" % n_frames)
             pipe = pipe_cls(c, mesh=mesh, sync=False, fetch_lag=4)
             zero_counts()
             mesh.reset_counts()
@@ -1280,31 +1306,38 @@ def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_c
                 per_frame.append((cur["all_gather"] - prev["all_gather"], cur["all_reduce"] - prev["all_reduce"]))
                 prev = cur
 
-            timed_frames(pipe, frames, 0, WARMUP, after)  # frame 0 builds the NCCL communicator
+            timed_frames(pipe, frames, 0, WARMUP, after)  # frame 0 builds the NCCL communicator; frame 10 captures
             ms_near = timed_frames(pipe, frames, WARMUP, NEAR_FRAMES, after)
-            last = n_frames - SHARDED_SYNC_FRAMES if name == "es" else n_frames
+            last = n_frames - SHARDED_SYNC_FRAMES
             ms_steady = (ms_near * (NEAR_FRAMES - WARMUP) + timed_frames(pipe, frames, NEAR_FRAMES, last, after) * (last - NEAR_FRAMES)) / (last - WARMUP)
-            if name == "es":
-                before = dict(mesh.counts)
-                check_host_syncs(pipe, frames, range(last, n_frames), SHARDED_SYNC_FRAMES, "es sharded: ")
-                pipe.flush()
-                per_frame.append((mesh.counts["all_gather"] - before["all_gather"], mesh.counts["all_reduce"] - before["all_reduce"]))
+            before = dict(mesh.counts)
+            check_host_syncs(pipe, frames, range(last, n_frames), SHARDED_SYNC_FRAMES, f"{name} sharded: ")
+            pipe.flush()
+            per_frame.append((mesh.counts["all_gather"] - before["all_gather"], mesh.counts["all_reduce"] - before["all_reduce"]))
             launches[f"{name}_sharded"] = read_counts()
             q, t = pipe.trajectory
+            for cap in pipe.captures:
+                log(f"  capture: {cap}")
+            check_graphs(f"{name} sharded", pipe.captures, pipe.replays, n_frames)
             want = [sharded_collectives(c, n_maps, k) for k in outer_counts(c, n_frames)]
-            if name == "es":
-                tail = want[last:]
-                want = want[:last] + [(sum(w[0] for w in tail), sum(w[1] for w in tail))]
+            tail = want[last:]
+            want = want[:last] + [(sum(w[0] for w in tail), sum(w[1] for w in tail))]
             total = (sum(w[0] for w in per_frame), sum(w[1] for w in per_frame))
-            log(f"  backend {mesh.backend}; kernel launches {launches[f'{name}_sharded']}; collectives {total[0]} all-gathers, "
-                f"{total[1]} all-reduces (a steady frame: {per_frame[WARMUP]}, wanted {want[WARMUP]}); overflow {pipe.overflow_total}")
+            log(f"  backend {mesh.backend}; CUDA graphs captured {len(pipe.captures)}, frames replayed {pipe.replays}; kernel launches "
+                f"{launches[f'{name}_sharded']}; collectives {total[0]} all-gathers, {total[1]} all-reduces (a steady frame: "
+                f"{per_frame[WARMUP]}, wanted {want[WARMUP]}); overflow {pipe.overflow_total}")
             check(per_frame == want, f"{name} sharded: collectives per frame {per_frame} != {want}")
             check(launches[f"{name}_sharded"]["knn_tiled"] == n_maps * (n_frames - 1), f"{name} sharded: kNN launches {launches[f'{name}_sharded']}")
             check(pipe.overflow_total == 0, f"{name} sharded: overflow_total {pipe.overflow_total}")
             same = np.array_equal(q, ref["q"][:n_frames]) and np.array_equal(t, ref["t"][:n_frames])
             log(f"  poses equal to phase {3 if name == 'es' else 8}'s over {n_frames} frames: {same} (max |dt| {np.abs(t - ref['t'][:n_frames]).max():.3e} m)")
             check(same, f"{name} sharded: poses differ from the single-device path's")
-            rec = dict(ms_near=ms_near, ms_steady=ms_steady, collectives=dict(all_gather=total[0], all_reduce=total[1]))
+            rec = dict(
+                ms_near=ms_near, ms_steady=ms_steady, collectives=dict(all_gather=total[0], all_reduce=total[1]),
+                steady_frame_collectives=per_frame[WARMUP], captures=len(pipe.captures), replays=pipe.replays,
+                capture_s=pipe.captures[0]["seconds"],
+            )
+            poses[name] = (q, t)
             if name == "es":
                 est = metrics.poses_to_matrices(q, t)
                 drift = metrics.kitti_drift(gt[:n_frames], est, lengths=(100.0,), step=10)
@@ -1312,12 +1345,71 @@ def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_c
                 log(f"  drift_t_pct {rec['drift']:.4f} (100 m segments: {drift['n_segments']})")
                 check(drift["n_segments"] > 0 and rec["drift"] < DRIFT_BAR, f"es sharded: drift {rec['drift']} not below {DRIFT_BAR}")
             rec["single_ms_near"] = single_device_near(make_pipeline, c, frames)
-            log(f"  ms/frame, frames {WARMUP}-{NEAR_FRAMES - 1}: sharded {ms_near:.2f}, single-device rerun right after {rec['single_ms_near']:.2f} "
+            log(f"  ms/frame, frames {WARMUP}-{NEAR_FRAMES - 1}: sharded replayed {ms_near:.2f}, single-device rerun right after {rec['single_ms_near']:.2f} "
                 f"(ratio {ms_near / rec['single_ms_near']:.3f}); sharded steady over frames {WARMUP}-{last - 1}: {ms_steady:.2f}")
             out[name] = rec
     finally:
         dist.destroy_process_group()
-    return out
+    return out, poses
+
+
+def sharded_eager_phase(cfg, cfg_bpf, frames, es, bpf, sharded, poses, phase):
+    """Phase 25: the map-sharded steps eagerly (``graphs=False``) and
+    replayed again, over a new NCCL group of one rank, frames
+    0..EAGER_FRAMES-1 of each: the eager poses equal the replayed ones of
+    phases 22-23 bit for bit, the replayed rerun captures one graph and
+    equals them too; frames WARMUP..EAGER_FRAMES-1 timed in both, beside the
+    replayed single-device rerun; frame EAGER_FRAMES of the replayed rerun
+    under the profiler: the device's busy time over the unprofiled replayed
+    ms/frame, its kernels, the NCCL kernels' time (none at ``n_map = 1``,
+    where NCCL runs a collective as a device-to-device copy, so the copies'
+    time is reported beside it) and the kNN kernel's.  ``poses``: phases
+    22-23's by path.  Adds the figures to ``sharded``."""
+    import torch.distributed as dist
+
+    from pfilter_tpu_torch.pipeline import make_pipeline
+
+    phase("phase 25: map-sharded ES and BPF eager against replayed, n_seq = n_map = 1 over NCCL, frames 0-%d" % (EAGER_FRAMES - 1))
+    mesh = nccl_group()
+    try:
+        for name, c, pipe_cls, _, _, _ in sharded_paths(cfg, cfg_bpf, es, bpf):
+            rec = sharded[name]
+            eager = pipe_cls(c, mesh=mesh, sync=False, fetch_lag=4, graphs=False)
+            timed_frames(eager, frames, 0, WARMUP)
+            ms_eager = timed_frames(eager, frames, WARMUP, EAGER_FRAMES)
+            replayed = pipe_cls(c, mesh=mesh, sync=False, fetch_lag=4)
+            timed_frames(replayed, frames, 0, WARMUP)
+            ms_replayed = timed_frames(replayed, frames, WARMUP, EAGER_FRAMES)
+            check_graphs(f"{name} sharded rerun", replayed.captures, replayed.replays, EAGER_FRAMES)
+            eq, et = eager.trajectory
+            rq, rt = replayed.trajectory
+            q, t = (a[:EAGER_FRAMES] for a in poses[name])
+            same = np.array_equal(eq, q) and np.array_equal(et, t)
+            rerun_same = np.array_equal(rq, eq) and np.array_equal(rt, et)
+            gap = float(np.abs(et - t).max())
+            log(f"  {name} sharded: eager poses equal the replayed run's of phase {22 if name == 'es' else 23} over frames 0-{EAGER_FRAMES - 1}: "
+                f"{same} (max |dt| {gap:.3e} m); the replayed rerun (one capture) equal too: {rerun_same}")
+            check(same and rerun_same, f"{name} sharded: eager and replayed poses differ (max |dt| {gap} m)")
+            prof = profile_frame(replayed, frames, EAGER_FRAMES)
+            log_profile(f"{name} sharded replayed frame {EAGER_FRAMES}", prof)
+            single_ms = single_device_near(make_pipeline, c, frames)
+            nccl = [k for k in prof["by_kernel"] if "nccl" in k.lower()]
+            copies = [k for k in prof["by_kernel"] if k.startswith("Memcpy DtoD")]
+            rec.update(
+                ms_eager=ms_eager, ms_replayed=ms_replayed, speedup=ms_eager / ms_replayed, single_ms_replayed=single_ms,
+                replayed_busy_ms=prof["busy_ms"], busy_of_steady_pct=prof["busy_ms"] / ms_replayed * 100, replayed_wall_ms=prof["wall_ms"],
+                replayed_kernels=prof["kernels"], graph_launches=prof["graph_launches"],
+                nccl_ms=sum(prof["by_kernel"][k] for k in nccl), nccl_kernels=sum(prof["by_kernel_count"][k] for k in nccl), nccl_names=nccl,
+                dtod_copy_ms=sum(prof["by_kernel"][k] for k in copies), dtod_copies=sum(prof["by_kernel_count"][k] for k in copies),
+                knn_in_replay=kernel_ms_in(prof, "knn_tiled_kernel"),
+            )
+            log(f"  {name} sharded: ms/frame over frames {WARMUP}-{EAGER_FRAMES - 1}: eager {ms_eager:.2f}, replayed {ms_replayed:.2f} "
+                f"(x{rec['speedup']:.1f}), the replayed single-device rerun {single_ms:.2f}; a replayed frame: device busy {prof['busy_ms']:.2f} ms "
+                f"= {rec['busy_of_steady_pct']:.1f} % of the unprofiled replayed ms/frame, {prof['kernels']} kernels; NCCL kernels "
+                f"{rec['nccl_ms']:.4f} ms ({rec['nccl_kernels']}: {nccl}); device-to-device copies {rec['dtod_copy_ms']:.4f} ms "
+                f"({rec['dtod_copies']}); kNN {rec['knn_in_replay'][0]:.4f} ms ({rec['knn_in_replay'][1]} launches)")
+    finally:
+        dist.destroy_process_group()
 
 
 def eager_phase(paths, frames, phase):
@@ -1611,8 +1703,9 @@ def main() -> int:
             check(launches[f"{name}_resume"]["knn_tiled"] == want, f"{name} resume: kNN launches {launches[f'{name}_resume']} != {want}")
             log(f"  kernel launches {launches[f'{name}_resume']}")
     knn_err = max(knn_err, option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches))
-    sharded = sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches)
+    sharded, sharded_poses = sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches)
     replay = eager_phase((("es", cfg, es), ("bpf_voxel", cfg_bpf, bpf), ("bpf_radius", cfg_rad, rad)), frames, phase)
+    sharded_eager_phase(cfg, cfg_bpf, frames, es, bpf, sharded, sharded_poses, phase)
     log(f"  total wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {

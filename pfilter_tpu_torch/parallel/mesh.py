@@ -13,7 +13,9 @@ here every cell is a process of the default ``torch.distributed`` group:
 :class:`Mesh` runs the four collectives of the step (``all_gather``,
 ``psum``, ``pmin``, ``pmax``, named as the reference's ``lax`` ones) over
 its map group and counts them.  A group of one rank still calls the
-backend: no collective is skipped at ``n_map == 1``.
+backend: no collective is skipped at ``n_map == 1``.  On a card the
+pipelines capture the step's collectives in their frame's CUDA graph
+(``graphs.py``), which adds the counts of its capture at every replay.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ class Mesh:
         self.group = group
         self.device = device
         self.counts = {"all_gather": 0, "all_reduce": 0}
+        self._communicating = False  # a collective of this mesh has run eagerly
 
     @property
     def backend(self) -> str:
@@ -63,20 +66,36 @@ class Mesh:
         qs = q // self.n_map
         return slice(self.map_index * qs, (self.map_index + 1) * qs)
 
+    def counters(self) -> list:
+        """``counts`` as the ``(holder, name)`` pairs of ``graphs.Counters``."""
+        return [(self.counts, kind) for kind in self.counts]
+
+    def _run(self, kind: str, collective, *args, **kwargs) -> None:
+        """Run and count one collective.  Inside a CUDA graph capture the
+        group's communicator must exist already: NCCL makes it at a group's
+        first collective, which cannot be captured, so a capture before any
+        eager collective of this mesh raises instead of hanging."""
+        capturing = self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+        if capturing and not self._communicating:
+            raise RuntimeError(f"{kind}: no collective of this mesh has run eagerly, so its communicator may not exist; run a frame eagerly before capturing one")
+        collective(*args, group=self.group, **kwargs)
+        self._communicating = self._communicating or not capturing
+        self.counts[kind] += 1
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` of every rank of the map group, stacked on a new leading axis
-        in map-rank order (the layout of ``lax.all_gather``).  The step packs
-        what it gathers into float32 (gloo has no bool collectives)."""
+        in map-rank order (the layout of ``lax.all_gather``), gathered into
+        one tensor (NCCL captures this form in a CUDA graph; gloo takes it
+        too).  The step packs what it gathers into float32 (gloo has no bool
+        collectives)."""
         x = x.contiguous()
-        out = [torch.empty_like(x) for _ in range(self.n_map)]
-        dist.all_gather(out, x, group=self.group)
-        self.counts["all_gather"] += 1
-        return torch.stack(out)
+        out = torch.empty((self.n_map * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        self._run("all_gather", dist.all_gather_into_tensor, out, x)
+        return out.view((self.n_map,) + tuple(x.shape))
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=op, group=self.group)
-        self.counts["all_reduce"] += 1
+        self._run("all_reduce", dist.all_reduce, y, op=op)
         return y
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:

@@ -99,7 +99,12 @@ class _HostLoop:
             self.graphs = self.device.type == "cuda"
         if self.graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True needs a CUDA device, not {self.device}: a CUDA graph runs only on the card")
-        self._graphs = FrameGraphs(type(self).__name__, self.device) if self.graphs else None
+        self._graphs = FrameGraphs(type(self).__name__, self.device, **self._graph_options()) if self.graphs else None
+
+    def _graph_options(self) -> dict:
+        """``FrameGraphs``' options beyond the defaults (the sharded
+        pipelines add their mesh's counters)."""
+        return {}
 
     def _run_step(self, step, state, *inputs):
         """``step(state, *inputs)``, one frame after the first: from the

@@ -21,7 +21,21 @@ Without ``--jobs`` it renders each row's scans (``--preset kitti``: the
 city world and loop of the v1 protocol at ``kitti_config()``; ``small``: a
 16-beam corridor), runs ``--frames`` frames, and rank 0 prints one JSON line
 (``distributed``, ``processes``, ``n_seq``, ``n_map``, each row's final
-pose, drift, ATE and overflow, ms/frame after two warm-up frames).
+pose, drift, ATE and overflow, the CUDA graphs captured and the frames
+replayed, and the collectives of one steady frame).  On cards the steady
+frames replay a CUDA graph captured at the first frame whose outer
+iterations are at their floor (frame 10 of ``kitti_config()``); ``--eager``
+runs every frame eagerly (the comparison run).  Frame 0 (the seed and the
+communicators) is not timed; the frames before the capture frame, the
+capture frame and the frames after it are timed apart (``ms_before``,
+``capture_ms``, ``ms_per_frame``; a run too short to reach a frame after
+the capture times every frame after frame 0 as ``ms_per_frame``, and
+``timed_frames`` says which).  ``--profile N`` then runs N more frames with
+rank 0 under ``torch.profiler`` (the device's busy time over them, its
+share of the unprofiled ms/frame, the kernels, the NCCL kernels' time);
+``--poses-out FILE`` writes every row's poses (``q [n_seq, F, 4]``, ``t
+[n_seq, F, 3]``) and ``--poses-ref FILE`` holds each row to the same row of
+such a file (the largest gaps in m and rad).
 
 With ``--jobs FILE`` it runs file in, file out: FILE is a JSON
 ``{"jobs": [...]}``; each job names ``mode``, ``n_seq``, ``n_map`` (their
@@ -155,6 +169,61 @@ def _score(q, t, gt) -> list:
     return [drift, metrics.ate_rmse(gt, est)]
 
 
+def capture_frame(cfg) -> int:
+    """The first frame whose outer iterations are at their floor: the frame a
+    pipeline captures on a card (frame 0 seeds at ``max_outer_iters``, each
+    later frame runs one fewer, down to ``min_outer_iters``)."""
+    o = cfg.odometry
+    return max(1, o.max_outer_iters - o.min_outer_iters)
+
+
+def _timed(pipe, xyz, valid, start: int, stop: int, cuda: bool, device) -> float:
+    """Dispatch frames start..stop-1, drain the lagged fetches and wait for
+    the card: seconds."""
+    t0 = time.perf_counter()
+    for i in range(start, stop):
+        pipe.process_frame(xyz[i], valid[i])
+    pipe.flush()
+    if cuda:
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+def _profile(pipe, xyz, valid, start: int, stop: int, device) -> dict:
+    """Frames start..stop-1 under ``torch.profiler`` (CPU and CUDA
+    activities): the device's busy time (every kernel and copy on the card;
+    the device rows of annotated ranges, such as ``nccl:all_reduce``, are
+    spans, not work), the kernels, and the NCCL kernels' time and count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _timed(pipe, xyz, valid, start, stop, True, device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    nccl = [e for e in events if e.key.startswith("nccl") and not e.key.startswith("nccl:")]
+    n = stop - start
+    return dict(
+        frames=n,
+        wall_ms_profiled=wall_ms,
+        busy_ms_per_frame=sum(e.self_device_time_total for e in events) / 1e3 / n,
+        kernels_per_frame=sum(e.count for e in events) / n,
+        nccl_ms_per_frame=sum(e.self_device_time_total for e in nccl) / 1e3 / n,
+        nccl_kernels_per_frame=sum(e.count for e in nccl) / n,
+        nccl_names=sorted({e.key[:60] for e in nccl}),
+    )
+
+
+def _rotation_gap(q1, q2) -> np.ndarray:
+    """Angle (rad) of the relative rotation between wxyz quaternions, per row."""
+    a, b = np.asarray(q1, np.float64), np.asarray(q2, np.float64)
+    w = np.sum(a * b, axis=-1)
+    v = a[..., :1] * b[..., 1:] - b[..., :1] * a[..., 1:] - np.cross(a[..., 1:], b[..., 1:])
+    return 2.0 * np.arctan2(np.linalg.norm(v, axis=-1), np.abs(w))
+
+
 def run_rendered(args) -> None:
     world = dist.get_world_size()
     n_map = args.n_map or world // args.n_seq
@@ -163,60 +232,82 @@ def run_rendered(args) -> None:
         cfg = kitti_config().replace(mode=args.mode)
     else:
         cfg = small_config(args.scan_points, n_map, args.mode)
-    xyz, valid, gt = render_rows(args, cfg, mesh, args.frames)
+    n = args.frames
+    xyz, valid, gt = render_rows(args, cfg, mesh, n + args.profile)
+    gt = gt[:n]
     cuda = mesh.device.type == "cuda"
     if cuda:
         from pfilter_tpu_torch.ops import _build
 
         _build.load()  # the kernels, before any frame is timed
-    pipe = make_sharded_pipeline(cfg, mesh, sync=False, fetch_lag=4)
+    elif args.profile:
+        raise ValueError("--profile needs CUDA cards")
+    pipe = make_sharded_pipeline(cfg, mesh, sync=False, fetch_lag=4, graphs=False if args.eager else None)
+    c = capture_frame(cfg)
     # Frame 0 builds the communicators and seeds the maps: not timed.
-    warm = 2 if args.frames > 2 else 1
-    for i in range(warm):
-        pipe.process_frame(xyz[i], valid[i])
-    pipe.flush()
-    if cuda:
-        torch.cuda.synchronize(mesh.device)
-    t0 = time.perf_counter()
-    for i in range(warm, args.frames):
-        pipe.process_frame(xyz[i], valid[i])
-    pipe.flush()
-    if cuda:
-        torch.cuda.synchronize(mesh.device)
-    steady = time.perf_counter() - t0
-    q, t = pipe.trajectory
-    # Every row's final pose, drift and ATE for rank 0's line (outside the
+    _timed(pipe, xyz, valid, 0, 1, cuda, mesh.device)
+    windows = {"before": (1, min(c, n)), "capture": (min(c, n), min(c + 1, n)), "steady": (min(c + 1, n), n)}
+    seconds, collectives = {}, {}
+    for name, (start, stop) in windows.items():
+        before = dict(mesh.counts)
+        seconds[name] = _timed(pipe, xyz, valid, start, stop, cuda, mesh.device)
+        collectives[name] = {k: mesh.counts[k] - before[k] for k in before}
+    start, stop = windows["steady"] if n > c + 1 else (1, n)
+    timed_s = seconds["steady"] if n > c + 1 else sum(seconds.values())
+    ms_per_frame = timed_s / max(stop - start, 1) * 1e3
+    prof = _profile(pipe, xyz, valid, n, n + args.profile, mesh.device) if args.profile else None
+    if prof is not None:
+        prof["busy_share_pct"] = prof["busy_ms_per_frame"] / ms_per_frame * 100  # of the unprofiled ms/frame
+    q, t = (a[:n] for a in pipe.trajectory)
+    # Every row's poses, drift, ATE and overflow for rank 0 (outside the
     # step's collectives).
-    mine = np.concatenate([q[-1], t[-1], _score(q, t, gt), [pipe.overflow_total]]).astype(np.float64)
+    mine = np.concatenate([q.ravel(), t.ravel(), _score(q, t, gt), [pipe.overflow_total]]).astype(np.float64)
     every = [torch.empty(mine.shape, dtype=torch.float64, device=mesh.device) for _ in range(world)]
     dist.all_gather(every, torch.from_numpy(mine).to(mesh.device))
-    if dist.get_rank() == 0:
-        rows = [every[s * n_map].cpu().numpy() for s in range(args.n_seq)]
-        if not all(np.isfinite(r[:7]).all() for r in rows):
-            raise RuntimeError(f"non-finite final poses {rows}")
-        print(
-            json.dumps(
-                {
-                    "distributed": "ok",
-                    "processes": world,
-                    "backend": mesh.backend,
-                    "device": torch.cuda.get_device_name(mesh.device) if cuda else "cpu",
-                    "n_seq": args.n_seq,
-                    "n_map": n_map,
-                    "mode": args.mode,
-                    "preset": args.preset,
-                    "frames": args.frames,
-                    "ms_per_frame": steady / max(args.frames - warm, 1) * 1e3,
-                    "final_pose_q": [r[:4].tolist() for r in rows],
-                    "final_pose_t": [r[4:7].tolist() for r in rows],
-                    "drift_t_pct": [float(r[7]) for r in rows],
-                    "ate_rmse_m": [float(r[8]) for r in rows],
-                    "overflow_total": [int(r[9]) for r in rows],
-                    "collectives_rank0": dict(mesh.counts),
-                }
-            ),
-            flush=True,
-        )
+    if dist.get_rank() != 0:
+        return
+    rows = [every[s * n_map].cpu().numpy() for s in range(args.n_seq)]
+    rq = np.stack([r[: 4 * n].reshape(n, 4) for r in rows])
+    rt = np.stack([r[4 * n : 7 * n].reshape(n, 3) for r in rows])
+    if not (np.isfinite(rq).all() and np.isfinite(rt).all()):
+        raise RuntimeError("non-finite poses")
+    steady_frames = max(windows["steady"][1] - windows["steady"][0], 0)
+    result = {
+        "distributed": "ok",
+        "processes": world,
+        "backend": mesh.backend,
+        "device": torch.cuda.get_device_name(mesh.device) if cuda else "cpu",
+        "n_seq": args.n_seq,
+        "n_map": n_map,
+        "mode": args.mode,
+        "preset": args.preset,
+        "frames": n,
+        "graphs": bool(pipe.graphs),
+        "ms_per_frame": ms_per_frame,
+        "timed_frames": [start, stop],
+        "ms_before": seconds["before"] / max(windows["before"][1] - windows["before"][0], 1) * 1e3,
+        "capture_frame": c,
+        "capture_ms": seconds["capture"] * 1e3,
+        "captures": len(pipe.captures),
+        "replays": pipe.replays,
+        "collectives_per_steady_frame": {k: v / steady_frames for k, v in collectives["steady"].items()} if steady_frames else None,
+        "final_pose_q": [r[-1].tolist() for r in rq],
+        "final_pose_t": [r[-1].tolist() for r in rt],
+        "drift_t_pct": [float(r[7 * n]) for r in rows],
+        "ate_rmse_m": [float(r[7 * n + 1]) for r in rows],
+        "overflow_total": [int(r[7 * n + 2]) for r in rows],
+        "collectives_rank0": dict(mesh.counts),
+        "profile_rank0": prof,
+    }
+    if args.poses_out:
+        np.savez(args.poses_out, q=rq, t=rt)
+    if args.poses_ref:
+        with np.load(args.poses_ref) as z:
+            k = min(n, z["q"].shape[1])
+            result["poses_ref"] = args.poses_ref
+            result["gap_t_m"] = [float(np.linalg.norm(rt[s, :k] - z["t"][s, :k], axis=-1).max()) for s in range(args.n_seq)]
+            result["gap_rad"] = [float(_rotation_gap(rq[s, :k], z["q"][s, :k]).max()) for s in range(args.n_seq)]
+    print(json.dumps(result), flush=True)
 
 
 def _records_arrays(records) -> dict:
@@ -236,7 +327,7 @@ def _block_leaves(state, prefix: str) -> dict:
     return {f"{prefix}.{k}": v for k, v in convert.flatten_leaves(convert.to_numpy(state)).items()}
 
 
-def run_job(job: dict, device) -> None:
+def run_job(job: dict, device, graphs=None) -> None:
     """One file-in, file-out job (see the module docstring)."""
     cfg = config_from_dict(job["config"]).replace(mode=job["mode"])
     mesh = meshlib.make_mesh(job["n_seq"], job["n_map"], device=device)
@@ -245,7 +336,7 @@ def run_job(job: dict, device) -> None:
     states = {int(k): v for k, v in job.get("states", {}).items()}
     save = set(job.get("save_states", []))
     ckpt, restore = job.get("checkpoint"), job.get("restore")
-    pipe = make_sharded_pipeline(cfg, mesh, sync=True)
+    pipe = make_sharded_pipeline(cfg, mesh, sync=True, graphs=graphs)
     start = 0
     if restore is not None:
         start = restore["frame"]
@@ -283,6 +374,10 @@ def main(argv=None) -> None:
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--scan-points", type=int, default=8192, help="--preset small only")
     ap.add_argument("--jobs", default=None, help="file-in, file-out mode: a JSON list of jobs")
+    ap.add_argument("--eager", action="store_true", help="run every frame eagerly (graphs=False), the comparison run")
+    ap.add_argument("--profile", type=int, default=0, help="then profile this many more frames on rank 0 (cards only)")
+    ap.add_argument("--poses-out", default=None, help="write every row's poses to this .npz (rank 0)")
+    ap.add_argument("--poses-ref", default=None, help="hold each row's poses to the same row of this .npz")
     args = ap.parse_args(argv)
     if args.init_method is not None and (args.rank is None or args.world_size is None):
         ap.error("--init-method needs --rank and --world-size")
@@ -294,7 +389,7 @@ def main(argv=None) -> None:
         else:
             jobs = json.loads(Path(args.jobs).read_text())["jobs"]
             for job in jobs:
-                run_job(job, _device_arg(args))
+                run_job(job, _device_arg(args), graphs=False if args.eager else None)
             if dist.get_rank() == 0:
                 print(json.dumps({"distributed": "ok", "processes": dist.get_world_size(), "jobs": len(jobs)}), flush=True)
     finally:

@@ -4,8 +4,9 @@ and replays it, as the reference package ``jax.jit``s its frame.  On the
 CPU there is no graph: ``graphs=True`` raises, the default runs eagerly and
 its poses are unchanged against the reference (the ES slice's tolerance,
 1 cm / 2e-3 rad, ``tests/test_torch_es.py``).  The map-sharded pipelines
-never capture (their collectives run eagerly).  The replayed-against-eager
-test needs the card and skips here."""
+do the same on the CPU (their compiled frame on the card:
+``tests/test_torch_sharded_graphs.py``).  The replayed-against-eager test
+needs the card and skips here."""
 
 import numpy as np
 import pytest
@@ -83,15 +84,17 @@ def test_default_cpu_pipeline_matches_reference(scans):
 
 @pytest.mark.parametrize("cls", [ShardedESPipeline, ShardedBPFPipeline])
 def test_sharded_pipelines_never_capture(scans, cls, tmp_path):
-    """Neither sharded pipeline holds a CUDA graph, ``ShardedBPFPipeline``
-    although it inherits ``BPFPipeline.process_frame``; asking for one
-    raises; frames past the outer iterations' floor run eagerly."""
+    """On the CPU neither sharded pipeline captures, as no single-device one
+    does: asking for a CUDA graph raises, the default (``graphs=None``)
+    resolves to eager, and frames past the outer iterations' floor run
+    eagerly.  (On a card both capture their steady frame:
+    ``tests/test_torch_sharded_graphs.py``.)"""
     jcfg, tcfg = _configs(scans, "es" if cls is ShardedESPipeline else "bpf")
     xyz, valid = scans[2], scans[3]
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
     try:
         grid = mesh.make_mesh(1, 1, device="cpu")
-        with pytest.raises(ValueError, match="eagerly"):
+        with pytest.raises(ValueError, match="CUDA"):
             cls(tcfg, mesh=grid, graphs=True)
         pipe = cls(tcfg, mesh=grid)
         assert pipe.graphs is False and pipe._graphs is None
