@@ -8,7 +8,11 @@ Drives the port's paths through ``make_pipeline`` at the full width of
 v1 protocol of ``bench.py`` (``make_city_world(seed=7)``,
 ``make_loop_trajectory(speed=1.5)``, 11 warm-up frames, drift scored on
 100-300 m segments that fit the run; the radius-BPF path runs 200 frames,
-scored on 100-200 m, every other path its first 100, scored on 100 m), each
+scored on 100-200 m, every other path its first 100, scored on 100 m).  The
+scans are the ones the reference package's stored trajectories were run on:
+rendered noise-free on the card, plus ``synthetic.shared_range_noise``
+(0.008 m, numpy, seeded by the frame), so that phase 26 can hold every path
+to the reference's own run of it.  Each path runs
 with every kernel launch count set to 0 just before it and read just after,
 and checks them.  Every pipeline, single-device or map-sharded, runs as it
 does by default on the card: frames 0-9 eagerly, frame 10 (the first whose
@@ -135,7 +139,20 @@ below holds through replays.  The reruns with a plain version run eagerly
     bit for bit those of phases 22-23, then a replayed rerun (one capture,
     bit for bit); frames 11-29 timed in both, beside a replayed
     single-device rerun; frame 30 of each rerun under the profiler (busy
-    share, kernels, the NCCL kernels' and the kNN kernel's time in it).
+    share, kernels, the NCCL kernels' and the kNN kernel's time in it);
+26. parity with the reference: DCVC's azimuths (``dcvc.atan2_f32``) on the
+    card equal to the CPU's bit for bit, and its clusters card vs CPU
+    logged; then the runs of phases 3, 8, 11, 19-21 and 22-23
+    (ES, BPF, radius BPF, ES per-iteration, ES grid, BPF per-iteration with
+    the fast ground filter, sharded ES and BPF at ``n_map = 1``) held frame
+    by frame to the reference package's run of the same path on the same
+    scans (``tests/data/torch_reference_v1.npz``, written on the CPU by
+    ``tools/torch_reference_trajectories.py``), over the frames both hold:
+    frames 0-9 within 1 cm / 2e-3 rad, every frame within 5 cm / 5e-3 rad,
+    overflow lanes equal, map sizes within 5 %, drift at 100 frames within
+    0.02 points (``utils/parity.py``); the per-frame gaps, the largest and
+    its frame (frames numbered from 0), and the gaps after 10, 50 and 100
+    frames (at frames 9, 49 and 99) logged.
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
 is present.  Prints the script's wall time.  The last three lines are a
@@ -191,6 +208,7 @@ FLOPS_PER_PAIR = 8  # 3 sub + 3 mul + 2 add per (query, candidate)
 FLOPS_PER_HIT = 16  # 10 adds + 6 products per (query, in-ball candidate)
 TPU_BPF_DRIFT = 0.3609  # the reference package's BPF v1 drift on a TPU v5 lite (BENCH_r05.json)
 RADIUS_OVERRIDES = ("pca.impl=radius", "capacity.frontend_tile_cap=5120")
+REFERENCE = Path(__file__).resolve().parent / "tests" / "data" / "torch_reference_v1.npz"  # phase 26 (tools/torch_reference_trajectories.py)
 PLAIN_REPEATS = 5
 MEAN_TOL_M = 1e-4
 COV_TOL_PER_POINT = 1e-3
@@ -237,12 +255,12 @@ def rotation_angle(q1, q2) -> np.ndarray:
 
 def render_all(cfg, world, poses, synthetic, dev):
     """All frames rendered on the card up front, padded to scan_points
-    (rendering is input generation, not the system under test)."""
+    (rendering is input generation, not the system under test): noise-free,
+    plus the range noise the reference's stored trajectories were run with
+    (``synthetic.shared_range_noise``, numpy, 0.008 m)."""
     cap = cfg.capacity.scan_points
     frames = []
-    for i in range(len(poses.t)):
-        pose = synthetic.se3.Pose(q=poses.q[i], t=poses.t[i])
-        xyz, valid = synthetic.render_scan(pose, world, cfg.lidar, AZIMUTH, noise=0.008, seed=0, t_time=float(i), device=dev)
+    for xyz, valid in zip(*synthetic.render_shared_sequence(world, poses, cfg.lidar, AZIMUTH, device=dev)):
         n = min(xyz.shape[0], cap)
         x = torch.zeros((cap, 3), dtype=torch.float32, device=dev)
         v = torch.zeros(cap, dtype=torch.bool, device=dev)
@@ -686,6 +704,8 @@ def run_protocol(pipe, frames, gt, metrics, n_frames, keep_state_before=None):
     """Warm up, time the steady loop over ``n_frames``, score drift and ATE
     against ``gt``; with ``keep_state_before`` the state the pipeline held
     before that frame (a state a caller keeps is never written again)."""
+    from pfilter_tpu_torch.utils import parity
+
     gt = gt[:n_frames]
     kept = None
     for i in range(WARMUP):
@@ -724,6 +744,7 @@ def run_protocol(pipe, frames, gt, metrics, n_frames, keep_state_before=None):
         graphs=pipe.graphs,
         n_frames=n_frames,
         state_before=kept,
+        records=parity.records_arrays(pipe.records),
     )
     log(f"  frames/s {r['fps']:.3f}  ms/frame {r['ms']:.2f}  (steady {n_frames - WARMUP} of {n_frames} frames; "
         f"CUDA graphs captured {len(r['captures'])}, frames replayed {r['replays']})")
@@ -1120,7 +1141,8 @@ def option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches):
     BPF per-iteration behind the fast ground filter, each driven through
     ``make_pipeline`` for OPTION_FRAMES frames and gated.  Adds each path's
     launch counts to ``launches``; returns the largest kNN kernel-vs-plain
-    difference (0: bit for bit)."""
+    difference (0: bit for bit) and the three runs (``run_protocol``'s
+    records) by path."""
     from pfilter_tpu_torch.ops import fast_ground
     from pfilter_tpu_torch.ops import knn as knn_grid
     from pfilter_tpu_torch.ops import knn_tiled as knn
@@ -1193,7 +1215,7 @@ def option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches):
     for label, fcfg in (("path config", cfg_bpf_pi.fast_ground), ("normal_method=1", dataclasses.replace(cfg_bpf_pi.fast_ground, normal_method=1))):
         fg_ms[label] = compare_fast_ground(fast_ground, xyz_f, valid_f, fcfg, f"fast ground filter ({label}), last frame")
     log(f"  fast_ground_filter on the card (CUDA events, 10 calls): {fg_ms} ms")
-    return knn_err
+    return knn_err, {"es_per_iteration": es_pi, "es_grid": es_grid, "bpf_per_iteration_fast": bpf_pi}
 
 
 def sharded_collectives(cfg, n_maps: int, opt_count):
@@ -1280,14 +1302,14 @@ def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_c
     group of one rank on this card, replayed from a CUDA graph with their
     collectives from frame 11 on, each held to its single-device path of
     phases 3 and 8 bit for bit.  Adds each path's launch counts to
-    ``launches``; returns their timing and collective records, and their
-    poses."""
+    ``launches``; returns their timing and collective records, their poses,
+    and their per-frame records (``parity.records_arrays``)."""
     import torch.distributed as dist
 
     from pfilter_tpu_torch.pipeline import make_pipeline
-    from pfilter_tpu_torch.utils import metrics
+    from pfilter_tpu_torch.utils import metrics, parity
 
-    out, poses = {}, {}
+    out, poses, records = {}, {}, {}
     mesh = nccl_group()
     try:
         for name, c, pipe_cls, n_frames, n_maps, ref in sharded_paths(cfg, cfg_bpf, es, bpf):
@@ -1338,6 +1360,7 @@ def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_c
                 capture_s=pipe.captures[0]["seconds"],
             )
             poses[name] = (q, t)
+            records[name] = parity.records_arrays(pipe.records)
             if name == "es":
                 est = metrics.poses_to_matrices(q, t)
                 drift = metrics.kitti_drift(gt[:n_frames], est, lengths=(100.0,), step=10)
@@ -1350,7 +1373,7 @@ def sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_c
             out[name] = rec
     finally:
         dist.destroy_process_group()
-    return out, poses
+    return out, poses, records
 
 
 def sharded_eager_phase(cfg, cfg_bpf, frames, es, bpf, sharded, poses, phase):
@@ -1466,6 +1489,63 @@ def eager_phase(paths, frames, phase):
             f"PCA {rec['pca_in_replay'][0]:.4f} ms ({rec['pca_in_replay'][1]}), work list {rec['work_list_in_replay'][0]:.4f} ms ({rec['work_list_in_replay'][1]})")
         out[name] = rec
     return out
+
+
+def dcvc_binning_check(cfg, frames, picks):
+    """DCVC's azimuths on the card: ``dcvc.atan2_f32`` equal to its CPU run
+    bit for bit on the valid rays of frames ``picks`` (the card's own
+    ``torch.atan2`` differs on many), and the clusters of each frame's
+    non-ground points on the card against the CPU's (labels differing:
+    logged)."""
+    from pfilter_tpu_torch.ops import dcvc, ground
+
+    for i in picks:
+        xyz, valid = frames[i]
+        card = dcvc.atan2_f32(xyz[:, 1], xyz[:, 0]).cpu()
+        host = dcvc.atan2_f32(xyz[:, 1].cpu(), xyz[:, 0].cpu())
+        v = valid.cpu()
+        same = torch.equal(card.view(torch.int32), host.view(torch.int32))
+        n_lib = int((torch.atan2(xyz[:, 1], xyz[:, 0]).cpu() != host)[v].sum())
+        ng = ground.segment_ground_dispatch(xyz, valid, cfg).nonground_mask
+        lc = dcvc.cluster(xyz, ng, cfg.dcvc, cfg.lidar)
+        lh = dcvc.cluster(xyz.cpu(), ng.cpu(), cfg.dcvc, cfg.lidar)
+        d_label = int((lc.label.cpu() != lh.label).sum())
+        d_keep = int((lc.keep.cpu() != lh.keep).sum())
+        log(f"  frame {i}: atan2_f32 on the card equal to the CPU on all {int(v.sum())} valid rays: {same} (the card's torch.atan2 "
+            f"differs on {n_lib}); DCVC of {int(ng.sum())} non-ground points, card vs CPU: labels differ on {d_label}, keep on {d_keep}")
+        check(same, f"frame {i}: atan2_f32 differs between the card and the CPU")
+
+
+def parity_phase(runs, gt, phase, cfg_bpf, frames):
+    """Phase 26: DCVC's azimuth binning on the card against the CPU
+    (``dcvc_binning_check``), then every path's run above (``runs``: path
+    name -> its ``parity.records_arrays``, on the shared scans) held to the
+    reference package's own run of that path, stored in
+    ``tests/data/torch_reference_v1.npz``, over the frames both hold, with
+    the gates of ``parity.compare``; the per-frame gaps logged.  Fails if any
+    path misses a gate (after logging every path)."""
+    from pfilter_tpu_torch.utils import metrics, parity
+
+    phase("phase 26: the port against the reference package's own trajectories (%s)" % REFERENCE.relative_to(REFERENCE.parents[2]))
+    dcvc_binning_check(cfg_bpf, frames, (0, 33, BPF_FRAMES - 1))
+    ref, side = parity.load_reference(REFERENCE)
+    log(f"  reference: {side['generator']}, {side['platform']}, jax {side['jax']}, commit {side['commit']['head']}")
+    log(f"  scans: {side['noise']}")
+    log(f"  gates: frames 0-{parity.COLD_FRAMES - 1} within {parity.COLD_TOL_M} m / {parity.COLD_TOL_RAD} rad; every frame within "
+        f"{parity.TOL_M} m / {parity.TOL_RAD} rad; overflow lanes equal; map sizes within {parity.MAP_SIZE_TOL:.0%}; drift at "
+        f"{parity.SCORE_AT} frames within {parity.DRIFT_TOL_POINTS} points")
+    failed = []
+    n = parity.SCORE_AT
+    for name, run in runs.items():
+        scored = min(len(run["t"]), len(ref[name]["t"])) >= n
+        drift = metrics.kitti_drift(gt[:n], metrics.poses_to_matrices(run["q"][:n], run["t"][:n]), lengths=LENGTHS, step=10)["t_err_pct"] if scored else None
+        ref_drift = side["paths"][name]["scores"][str(n)]["drift_t_pct"] if scored else None
+        res = parity.compare(run, ref[name], drift, ref_drift)
+        log("  " + parity.summary(name, res))
+        log(f"  {name} gap per frame, cm: " + " ".join(f"{g * 100:.2f}" for g in res["gap_t_m"]))
+        log(f"  {name} gap per frame, mrad: " + " ".join(f"{g * 1e3:.3f}" for g in res["gap_rad"]))
+        failed += [f"{name}: {f}" for f in res["failures"]]
+    check(not failed, f"parity with the reference: {failed}")
 
 
 def main() -> int:
@@ -1702,10 +1782,15 @@ def main() -> int:
             want = per_frame * (RESUME_AT - 1) + per_frame * RESUME_AT
             check(launches[f"{name}_resume"]["knn_tiled"] == want, f"{name} resume: kNN launches {launches[f'{name}_resume']} != {want}")
             log(f"  kernel launches {launches[f'{name}_resume']}")
-    knn_err = max(knn_err, option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches))
-    sharded, sharded_poses = sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches)
+    option_err, option_runs = option_phases(cfg, frames, gt, phase, zero_counts, read_counts, launches)
+    knn_err = max(knn_err, option_err)
+    sharded, sharded_poses, sharded_records = sharded_phases(cfg, cfg_bpf, frames, gt, es, bpf, phase, zero_counts, read_counts, launches)
     replay = eager_phase((("es", cfg, es), ("bpf_voxel", cfg_bpf, bpf), ("bpf_radius", cfg_rad, rad)), frames, phase)
     sharded_eager_phase(cfg, cfg_bpf, frames, es, bpf, sharded, sharded_poses, phase)
+    parity_runs = {"es": es["records"], "bpf": bpf["records"], "bpf_radius": rad["records"]}
+    parity_runs.update({name: r["records"] for name, r in option_runs.items()})
+    parity_runs.update({"es_sharded_m1": sharded_records["es"], "bpf_sharded_m1": sharded_records["bpf"]})
+    parity_phase(parity_runs, gt, phase, cfg_bpf, frames)
     log(f"  total wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {

@@ -35,7 +35,12 @@ rank 0 under ``torch.profiler`` (the device's busy time over them, its
 share of the unprofiled ms/frame, the kernels, the NCCL kernels' time);
 ``--poses-out FILE`` writes every row's poses (``q [n_seq, F, 4]``, ``t
 [n_seq, F, 3]``) and ``--poses-ref FILE`` holds each row to the same row of
-such a file (the largest gaps in m and rad).
+such a file (the gaps in m and rad per frame, and the largest and its
+frame).  ``--reference FILE`` (the stored reference trajectories,
+``tests/data/torch_reference_v1.npz`` in the repository) holds row 0 to the
+reference package's map-sharded run at the same ``n_map`` on the same scans
+(the kitti preset renders them with the reference's range noise,
+``synthetic.render_shared_sequence``), with the gates of ``utils/parity.py``.
 
 With ``--jobs FILE`` it runs file in, file out: FILE is a JSON
 ``{"jobs": [...]}``; each job names ``mode``, ``n_seq``, ``n_map`` (their
@@ -78,10 +83,9 @@ from pfilter_tpu_torch.config import (
 )
 from pfilter_tpu_torch.parallel import mesh as meshlib
 from pfilter_tpu_torch.parallel.pipeline import make_sharded_pipeline
-from pfilter_tpu_torch.utils import checkpoint, metrics, synthetic
+from pfilter_tpu_torch.utils import checkpoint, metrics, parity, synthetic
 
 V1_AZIMUTH = 1800  # the v1 protocol's scans (bench.py): HDL-64 at 1800 azimuth, 0.008 m range noise
-V1_NOISE = 0.008
 
 
 def config_from_dict(d: dict) -> PipelineConfig:
@@ -139,17 +143,19 @@ def _device_arg(args):
 def render_rows(args, cfg, mesh, n_frames: int):
     """This rank's row's scans, rendered on its device and padded to
     ``scan_points`` (each row its own world: the seed offset by the row),
-    and the row's ground-truth poses as 4x4 matrices relative to frame 0."""
+    and the row's ground-truth poses as 4x4 matrices relative to frame 0.
+    The kitti preset's scans carry the range noise of the reference's
+    stored trajectories (``synthetic.render_shared_sequence``), so that row
+    0 can be held to them (``--poses-ref``)."""
     dev = mesh.device
     if args.preset == "kitti":
         world = synthetic.make_city_world(seed=7 + mesh.seq_index)
         poses = synthetic.make_loop_trajectory(n_frames, speed=1.5)
-        n_az, noise = V1_AZIMUTH, V1_NOISE
+        xyz, valid = synthetic.render_shared_sequence(world, poses, cfg.lidar, V1_AZIMUTH, device=dev)
     else:
         world = synthetic.make_world(seed=3 + mesh.seq_index, corridor_len=50.0)
         poses = synthetic.make_trajectory(n_frames, speed=0.5)
-        n_az, noise = 512, 0.005
-    xyz, valid = synthetic.render_sequence(world, poses, cfg.lidar, n_az, noise=noise, device=dev)
+        xyz, valid = synthetic.render_sequence(world, poses, cfg.lidar, 512, noise=0.005, device=dev)
     cap = cfg.capacity.scan_points
     n = min(xyz.shape[1], cap)
     x = torch.zeros((n_frames, cap, 3), dtype=torch.float32, device=dev)
@@ -216,12 +222,49 @@ def _profile(pipe, xyz, valid, start: int, stop: int, device) -> dict:
     )
 
 
-def _rotation_gap(q1, q2) -> np.ndarray:
-    """Angle (rad) of the relative rotation between wxyz quaternions, per row."""
-    a, b = np.asarray(q1, np.float64), np.asarray(q2, np.float64)
-    w = np.sum(a * b, axis=-1)
-    v = a[..., :1] * b[..., 1:] - b[..., :1] * a[..., 1:] - np.cross(a[..., 1:], b[..., 1:])
-    return 2.0 * np.arctan2(np.linalg.norm(v, axis=-1), np.abs(w))
+def _gaps(rows, refs) -> dict:
+    """Per-frame and largest gaps of each row's poses to its reference
+    poses (``rows``, ``refs``: lists of ``(q, t)``)."""
+    gaps = [parity.pose_gaps(q, t, rq, rt) for (q, t), (rq, rt) in zip(rows, refs)]
+    return dict(
+        gap_t_m=[float(g[0].max()) for g in gaps],
+        gap_t_frame=[int(g[0].argmax()) for g in gaps],
+        gap_rad=[float(g[1].max()) for g in gaps],
+        gap_rad_frame=[int(g[1].argmax()) for g in gaps],
+        gap_t_m_per_frame=[g[0].tolist() for g in gaps],
+        gap_rad_per_frame=[g[1].tolist() for g in gaps],
+    )
+
+
+def hold_to_poses(path, rq, rt) -> dict:
+    """``--poses-ref``: each row's poses (``rq [n_seq, F, 4]``, ``rt``)
+    against the same row of a ``--poses-out`` file."""
+    with np.load(path) as z:
+        refs = [(z["q"][s], z["t"][s]) for s in range(min(len(rq), z["q"].shape[0]))]
+    return {"poses_ref": str(path), **_gaps(list(zip(rq, rt)), refs)}
+
+
+def hold_to_reference(path, mode: str, n_map: int, rq, rt, records, gt) -> dict:
+    """``--reference``: row 0's poses (``rq [n_seq, F, 4]``, ``rt``) against
+    the reference package's map-sharded run of ``mode`` at this ``n_map`` in
+    the stored trajectories ``path``, per frame, held to the gates of
+    ``parity.compare`` with row 0's ``records`` (overflow, map sizes) and
+    drift at ``parity.SCORE_AT`` frames against ``gt``."""
+    runs, side = parity.load_reference(path)
+    name = f"{mode}_sharded_m{n_map}"
+    ref = runs[name]
+    scored = min(rt.shape[1], ref["t"].shape[0]) >= parity.SCORE_AT
+    drift = _score(rq[0][: parity.SCORE_AT], rt[0][: parity.SCORE_AT], gt[: parity.SCORE_AT])[0] if scored else None
+    ref_drift = side["paths"][name]["scores"][str(parity.SCORE_AT)]["drift_t_pct"] if scored else None
+    res = parity.compare(parity.records_arrays(records[: rt.shape[1]]), ref, drift, ref_drift)
+    return {
+        "reference": str(path),
+        "reference_path": name,
+        "parity": {f: v for f, v in res.items() if f not in ("gap_t_m", "gap_rad")},
+        "parity_summary": parity.summary(name, res),
+        "reference_gap_t_m_per_frame": res["gap_t_m"].tolist(),
+        "reference_gap_rad_per_frame": res["gap_rad"].tolist(),
+    }
 
 
 def run_rendered(args) -> None:
@@ -302,24 +345,19 @@ def run_rendered(args) -> None:
     if args.poses_out:
         np.savez(args.poses_out, q=rq, t=rt)
     if args.poses_ref:
-        with np.load(args.poses_ref) as z:
-            k = min(n, z["q"].shape[1])
-            result["poses_ref"] = args.poses_ref
-            result["gap_t_m"] = [float(np.linalg.norm(rt[s, :k] - z["t"][s, :k], axis=-1).max()) for s in range(args.n_seq)]
-            result["gap_rad"] = [float(_rotation_gap(rq[s, :k], z["q"][s, :k]).max()) for s in range(args.n_seq)]
+        result.update(hold_to_poses(args.poses_ref, rq, rt))
+    if args.reference:
+        result.update(hold_to_reference(args.reference, args.mode, n_map, rq, rt, pipe.records, gt))
     print(json.dumps(result), flush=True)
 
 
 def _records_arrays(records) -> dict:
-    """Per-frame arrays of an ES or BPF pipeline's records."""
-    out = {"pose_q": np.stack([r.pose_q for r in records]), "pose_t": np.stack([r.pose_t for r in records])}
+    """Per-frame arrays of an ES or BPF pipeline's records:
+    ``parity.records_arrays``, its poses as ``pose_q`` / ``pose_t`` and its
+    overflow lanes in their own shape."""
+    out = parity.records_arrays(records)
+    out["pose_q"], out["pose_t"] = out.pop("q"), out.pop("t")
     out["overflow"] = np.stack([r.overflow for r in records])
-    if hasattr(records[0], "n_corr"):
-        out["n_corr"] = np.stack([r.n_corr for r in records])
-        out["map_sizes"] = np.stack([r.map_sizes for r in records])
-    else:
-        out["n_corr"] = np.array([[r.n_edge_corr, r.n_surf_corr] for r in records])
-        out["map_sizes"] = np.array([[r.edge_map_size, r.surf_map_size] for r in records])
     return out
 
 
@@ -377,8 +415,15 @@ def main(argv=None) -> None:
     ap.add_argument("--eager", action="store_true", help="run every frame eagerly (graphs=False), the comparison run")
     ap.add_argument("--profile", type=int, default=0, help="then profile this many more frames on rank 0 (cards only)")
     ap.add_argument("--poses-out", default=None, help="write every row's poses to this .npz (rank 0)")
-    ap.add_argument("--poses-ref", default=None, help="hold each row's poses to the same row of this .npz")
+    ap.add_argument("--poses-ref", default=None, help="hold each row's poses to the same row of this --poses-out .npz")
+    ap.add_argument(
+        "--reference", default=None,
+        help="hold row 0 to the reference's sharded run at this n_map in these stored trajectories "
+        "(tests/data/torch_reference_v1.npz; --preset kitti)",
+    )
     args = ap.parse_args(argv)
+    if args.reference is not None and args.preset != "kitti":
+        ap.error("--reference holds the kitti preset's scans")
     if args.init_method is not None and (args.rank is None or args.world_size is None):
         ap.error("--init-method needs --rank and --world-size")
 

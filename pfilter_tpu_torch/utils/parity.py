@@ -1,0 +1,147 @@
+"""The port held to the reference package's own trajectories at full width.
+
+``tests/data/torch_reference_v1.npz`` (written by
+``tools/torch_reference_trajectories.py``, which runs ``pfilter_tpu`` on the
+CPU) holds, for every path, the reference's poses, overflow lanes, map sizes
+and correspondence counts per frame on the v1 city's shared scans
+(``synthetic.render_shared_sequence``), and its sidecar the reference's drift
+and ATE.  ``compare`` holds a port run of the same path on the same scans to
+them with the gates below, stated before any full-width run was read:
+
+- frames 0 .. COLD_FRAMES-1 within COLD_TOL_M / COLD_TOL_RAD, the ES slice's
+  cold-start tolerance (``tests/test_torch_es.py``);
+- every frame within TOL_M / TOL_RAD;
+- the overflow lanes equal on every frame;
+- every map's size within MAP_SIZE_TOL of the reference's on every frame;
+- the drift at ``SCORE_AT`` frames within DRIFT_TOL_POINTS percentage points
+  of the reference's (where the path holds a 100 m segment).
+
+Frames are numbered from 0 throughout; ``gap_at[f]`` is the gap after ``f``
+frames, i.e. at frame ``f - 1``.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+
+COLD_FRAMES = 10
+COLD_TOL_M = 1e-2
+COLD_TOL_RAD = 2e-3
+TOL_M = 5e-2
+TOL_RAD = 5e-3
+MAP_SIZE_TOL = 0.05
+DRIFT_TOL_POINTS = 0.02
+SCORE_AT = 100
+REPORT_FRAMES = (10, 50, 100)  # the gaps logged after this many frames (when the run reaches them)
+
+
+def load_reference(path) -> tuple[dict, dict]:
+    """``({path name: {field: array}}, sidecar)`` of the stored reference
+    trajectories ``path`` (an ``.npz`` beside its ``.json`` sidecar)."""
+    path = Path(path)
+    runs: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            name, field = key.rsplit(".", 1)
+            runs.setdefault(name, {})[field] = z[key]
+    return runs, json.loads(path.with_suffix(".json").read_text())
+
+
+def rotation_angle(q1, q2) -> np.ndarray:
+    """Angle (rad) of the relative rotation between wxyz quaternions, per row."""
+    a, b = np.asarray(q1, np.float64), np.asarray(q2, np.float64)
+    w = np.sum(a * b, axis=-1)  # real part of conj(a) * b
+    v = a[..., :1] * b[..., 1:] - b[..., :1] * a[..., 1:] - np.cross(a[..., 1:], b[..., 1:])
+    return 2.0 * np.arctan2(np.linalg.norm(v, axis=-1), np.abs(w))
+
+
+def pose_gaps(q, t, ref_q, ref_t) -> tuple[np.ndarray, np.ndarray]:
+    """Per-frame position (m) and rotation (rad) gaps over the frames both hold."""
+    k = min(len(t), len(ref_t))
+    return np.linalg.norm(np.asarray(t[:k], np.float64) - np.asarray(ref_t[:k], np.float64), axis=1), rotation_angle(q[:k], ref_q[:k])
+
+
+def records_arrays(records) -> dict:
+    """Per-frame ``q``, ``t``, ``overflow`` (flattened lanes), ``map_sizes``
+    and ``n_corr`` of an ES or BPF pipeline's records (and ``trunc``, BPF's
+    front-end truncation), in the stored reference's layout."""
+    out = dict(
+        q=np.stack([r.pose_q for r in records]),
+        t=np.stack([r.pose_t for r in records]),
+        overflow=np.stack([np.asarray(r.overflow).reshape(-1) for r in records]).astype(np.int64),
+    )
+    if hasattr(records[0], "n_corr"):
+        out["n_corr"] = np.stack([np.asarray(r.n_corr) for r in records]).astype(np.int64)
+        out["map_sizes"] = np.stack([np.asarray(r.map_sizes) for r in records]).astype(np.int64)
+        out["trunc"] = np.array([r.n_scan_trunc for r in records], np.int64)
+    else:
+        out["n_corr"] = np.array([[r.n_edge_corr, r.n_surf_corr] for r in records], np.int64)
+        out["map_sizes"] = np.array([[r.edge_map_size, r.surf_map_size] for r in records], np.int64)
+    return out
+
+
+def compare(run: dict, ref: dict, drift=None, ref_drift=None) -> dict:
+    """Hold ``run`` (``records_arrays`` of a port run) to ``ref`` (one path
+    of ``load_reference``) over the frames both hold; ``drift`` and
+    ``ref_drift``: both runs' drift at SCORE_AT frames (None where not
+    scored).  Returns the per-frame gaps, their summary and ``failures``, a
+    list of the gates missed (empty: every gate held)."""
+    gap_t, gap_r = pose_gaps(run["q"], run["t"], ref["q"], ref["t"])
+    k = len(gap_t)
+    out = dict(frames=k, gap_t_m=gap_t, gap_rad=gap_r)
+    out["max_gap_t_m"], out["max_gap_t_frame"] = float(gap_t.max()), int(gap_t.argmax())
+    out["max_gap_rad"], out["max_gap_rad_frame"] = float(gap_r.max()), int(gap_r.argmax())
+    out["gap_at"] = {f: [float(gap_t[f - 1]), float(gap_r[f - 1])] for f in REPORT_FRAMES if f <= k}
+    cold = slice(0, min(COLD_FRAMES, k))
+    out["cold_gap_t_m"], out["cold_gap_rad"] = float(gap_t[cold].max()), float(gap_r[cold].max())
+    failures = []
+    if not (np.isfinite(gap_t).all() and np.isfinite(gap_r).all()):
+        failures.append("non-finite poses")
+    if out["cold_gap_t_m"] > COLD_TOL_M or out["cold_gap_rad"] > COLD_TOL_RAD:
+        failures.append(f"frames 0-{cold.stop - 1}: gap {out['cold_gap_t_m']:.4g} m / {out['cold_gap_rad']:.4g} rad "
+                        f"over {COLD_TOL_M} m / {COLD_TOL_RAD} rad")
+    if out["max_gap_t_m"] > TOL_M or out["max_gap_rad"] > TOL_RAD:
+        failures.append(f"gap {out['max_gap_t_m']:.4g} m (frame {out['max_gap_t_frame']}) / {out['max_gap_rad']:.4g} rad "
+                        f"(frame {out['max_gap_rad_frame']}) over {TOL_M} m / {TOL_RAD} rad")
+    ov, ov_ref = np.asarray(run["overflow"][:k]), np.asarray(ref["overflow"][:k])
+    if "trunc" in ref and "trunc" in run:  # BPF's front-end truncation (the sharded reference reports none)
+        ov = np.concatenate([ov, np.asarray(run["trunc"][:k])[:, None]], 1)
+        ov_ref = np.concatenate([ov_ref, np.asarray(ref["trunc"][:k])[:, None]], 1)
+    bad = np.flatnonzero((ov != ov_ref).any(axis=1))
+    out["overflow_frames_differing"] = bad.tolist()
+    out["overflow_total"], out["overflow_total_ref"] = int(ov.sum()), int(ov_ref.sum())
+    if bad.size:
+        failures.append(f"overflow lanes differ on frames {bad.tolist()[:10]}")
+    sizes, sizes_ref = np.asarray(run["map_sizes"][:k], np.float64), np.asarray(ref["map_sizes"][:k], np.float64)
+    rel = np.abs(sizes - sizes_ref) / np.maximum(sizes_ref, 1.0)
+    out["map_size_rel"] = float(rel.max())
+    out["map_size_rel_at"] = [int(x) for x in np.unravel_index(int(rel.argmax()), rel.shape)]  # (frame, map)
+    if out["map_size_rel"] > MAP_SIZE_TOL:
+        f, m = out["map_size_rel_at"]
+        failures.append(f"map {m} size {int(sizes[f, m])} vs {int(sizes_ref[f, m])} on frame {f} ({out['map_size_rel']:.2%} > {MAP_SIZE_TOL:.0%})")
+    corr, corr_ref = np.asarray(run["n_corr"][:k], np.float64), np.asarray(ref["n_corr"][:k], np.float64)
+    out["n_corr_rel"] = float((np.abs(corr - corr_ref) / np.maximum(corr_ref, 1.0)).max())
+    out["drift"], out["drift_ref"] = drift, ref_drift
+    if drift is not None and ref_drift is not None and np.isfinite(ref_drift):
+        out["drift_gap_points"] = abs(drift - ref_drift)
+        if not out["drift_gap_points"] <= DRIFT_TOL_POINTS:
+            failures.append(f"drift {drift:.4f} % vs the reference's {ref_drift:.4f} % (> {DRIFT_TOL_POINTS} points)")
+    out["failures"] = failures
+    return out
+
+
+def summary(name: str, res: dict) -> str:
+    """One log line of a ``compare`` result."""
+    at = "".join(f"after {f} frames: {g[0] * 100:.3f} cm / {g[1]:.2e} rad; " for f, g in res["gap_at"].items())
+    drift = ""
+    if res.get("drift_gap_points") is not None:
+        drift = f"; drift {res['drift']:.4f} % vs {res['drift_ref']:.4f} % ({res['drift_gap_points']:.4f} points)"
+    return (f"{name}: {res['frames']} frames; largest gap {res['max_gap_t_m'] * 100:.3f} cm (frame {res['max_gap_t_frame']}), "
+            f"{res['max_gap_rad']:.2e} rad (frame {res['max_gap_rad_frame']}); frames 0-{COLD_FRAMES - 1} {res['cold_gap_t_m'] * 100:.3f} cm / "
+            f"{res['cold_gap_rad']:.2e} rad; {at}overflow {res['overflow_total']} vs {res['overflow_total_ref']} "
+            f"(frames differing {len(res['overflow_frames_differing'])}); map sizes within {res['map_size_rel']:.2%} "
+            f"(frame, map {res['map_size_rel_at']}); correspondences within {res['n_corr_rel']:.2%}{drift}; "
+            f"{'every gate held' if not res['failures'] else 'FAILED: ' + ' | '.join(res['failures'])}")

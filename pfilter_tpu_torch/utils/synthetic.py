@@ -10,7 +10,9 @@ producing sensor-frame scans plus ground-truth poses for drift evaluation.
 Beam elevations invert exactly through the reference's ring formulas
 (src/laserProcessingClass.cpp:46-57), so feature extraction bins them onto
 the intended rings.  Range noise comes from a ``torch.Generator``; it cannot
-equal ``jax.random``, so parity tests render with ``noise=0``.
+equal ``jax.random``, so parity runs render with ``noise=0`` and add
+``shared_range_noise``, the one noise both packages' scans can share: numpy,
+outside either renderer (``render_shared_sequence`` does both).
 """
 
 from __future__ import annotations
@@ -758,5 +760,41 @@ def render_sequence(world: World, poses: se3.Pose, lidar: LidarConfig, n_azimuth
     for i in range(t.shape[0]):
         x, v = render_scan(se3.Pose(q=q[i], t=t[i]), world, lidar, n_azimuth, noise=noise, seed=i, t_time=i, device=device)
         xs.append(x)
+        vs.append(v)
+    return torch.stack(xs), torch.stack(vs)
+
+
+SHARED_NOISE_SIGMA = 0.008  # m, the v1 protocol's range noise (bench.py)
+SHARED_NOISE_SEED = 1000  # frame i draws from np.random.default_rng(SHARED_NOISE_SEED + i)
+
+
+def shared_range_noise(xyz, valid, frame: int, sigma: float = SHARED_NOISE_SIGMA) -> np.ndarray:
+    """Range noise for frame ``frame`` of a noise-free scan, in numpy and
+    float32: ``n ~ N(0, sigma)`` from ``np.random.default_rng(1000 + frame)``,
+    one draw per ray, moves each valid ray's point along the ray,
+    ``xyz * (1 + n / |xyz|)``; invalid rays are left as they are.  The one
+    definition of the noise that the reference package's trajectories
+    (``tools/torch_reference_trajectories.py``) and the port's runs against
+    them (``chip_smoke.py``, ``run_distributed``, the tests) add to their own
+    renderers' noise-free scans."""
+    xyz = np.asarray(xyz, np.float32)
+    valid = np.asarray(valid, bool)
+    n = np.random.default_rng(SHARED_NOISE_SEED + int(frame)).normal(0.0, sigma, xyz.shape[0]).astype(np.float32)
+    r = np.linalg.norm(xyz, axis=1)
+    scale = np.where(valid, np.float32(1.0) + n / np.maximum(r, np.float32(1e-6)), np.float32(1.0)).astype(np.float32)
+    return xyz * scale[:, None]
+
+
+def render_shared_sequence(world: World, poses: se3.Pose, lidar: LidarConfig, n_azimuth: int, device=None):
+    """Every frame of ``poses`` rendered noise-free on ``device`` (CUDA
+    unless ``"cpu"``), with ``t_time=i``, plus ``shared_range_noise`` of
+    frame ``i``: ``(xyz [F, R*A, 3], valid [F, R*A])`` on ``device``."""
+    dev = resolve_device(device)
+    q, t = np.asarray(poses.q), np.asarray(poses.t)
+    xs, vs = [], []
+    for i in range(t.shape[0]):
+        x, v = render_scan(se3.Pose(q=q[i], t=t[i]), world, lidar, n_azimuth, noise=0.0, t_time=float(i), device=dev)
+        v_np = v.cpu().numpy()
+        xs.append(torch.from_numpy(shared_range_noise(x.cpu().numpy(), v_np, i)).to(dev))
         vs.append(v)
     return torch.stack(xs), torch.stack(vs)

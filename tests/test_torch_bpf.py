@@ -4,13 +4,15 @@ in both packages on the same rendered scans (``tests/test_bpf.py``'s
 32-beam ``small_config`` widths), one ``bpf_step`` from a state carried
 across with ``convert.bpf_state_from_jax_numpy``, and the ES pre-filters.
 
-Front-end masks are compared with the reference run eagerly, and agree
-exactly.  The reference pipeline runs its front-end compiled, and its own
-compiled and eager front-ends already differ by ~120 of 11k non-ground
-points on frame 0 (the fused polar conversion moves a few DCVC voxels;
-measured), so pipeline poses are held to the ES slice's 1 cm / 2e-3 rad and
-counts to 5 %.  The carried-over step gets the reference's compiled masks,
-which isolates the odometry: 2 mm / 1e-3 rad."""
+Front-end masks are compared with the reference compiled, as its pipelines
+run it, and agree exactly: the port bins DCVC's azimuths as the compiled
+reference does (``ops/dcvc.py``).  The reference's own compiled and eager
+front-ends differ by ~120 of 11k non-ground points on frame 0 (XLA turns the
+division by the bin width into a product with its reciprocal, and on this
+scan's 0.3-degree azimuth grid one ray in four sits on a 1.2-degree bin's
+half; ``tests/test_torch_dcvc.py``).  Pipeline poses are held to the ES
+slice's 1 cm / 2e-3 rad and counts to 5 %.  The carried-over step gets the
+reference's compiled masks, which isolates the odometry: 2 mm / 1e-3 rad."""
 
 import dataclasses
 
@@ -76,7 +78,7 @@ def test_frontend_masks_match_reference(runs, impl, overrides, filters):
         jcfg = jcfg.replace(capacity=dataclasses.replace(jcfg.capacity, frontend_tile_cap=128))
     tcfg = torch_config(jcfg)
     x, v = runs["xyz"][0], runs["valid"][0]
-    want = jfe.run_frontend(jnp.asarray(x), jnp.asarray(v), jcfg, *filters)
+    want = jax.jit(lambda a, b: jfe.run_frontend(a, b, jcfg, *filters))(jnp.asarray(x), jnp.asarray(v))
     got = tfe.run_frontend(t(x), t(v), tcfg, *filters)
     for f in tfe.FrontendResult._fields:
         np.testing.assert_array_equal(n(getattr(got, f)), np.asarray(getattr(want, f)), err_msg=f)
@@ -210,12 +212,17 @@ def test_option_pipeline_matches_reference(runs, option):
 
 def test_es_prefilters_match_reference(runs):
     """es_ground_filter / es_curved_filter: the ES pipeline's input mask is
-    the reference's ground + DCVC composition, and the pipeline runs on it."""
+    the reference's ground + DCVC composition, compiled as its pipeline runs
+    it, and the pipeline runs on it."""
     jcfg = runs["jcfg"].replace(mode="es", es_ground_filter=True, es_curved_filter=True)
     tcfg = torch_config(jcfg)
     x, v = runs["xyz"][0], runs["valid"][0]
-    want = jground.segment_ground_dispatch(jnp.asarray(x), jnp.asarray(v), jcfg).nonground_mask
-    want = jdcvc.cluster(jnp.asarray(x), want, jcfg.dcvc, jcfg.lidar).keep
+
+    def prefilter(a, b):
+        keep = jground.segment_ground_dispatch(a, b, jcfg).nonground_mask
+        return jdcvc.cluster(a, keep, jcfg.dcvc, jcfg.lidar).keep
+
+    want = jax.jit(prefilter)(jnp.asarray(x), jnp.asarray(v))
     pipe = ESPipeline(tcfg, device="cpu")
     np.testing.assert_array_equal(n(pipe._prefilter(t(x), t(v))), np.asarray(want))
     for i in range(2):
