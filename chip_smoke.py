@@ -7,12 +7,14 @@ Drives the port's paths through ``make_pipeline`` at the full width of
 ``kitti_config()`` (HDL-64, 1800 azimuth, 131072-point scans) on the pinned
 v1 protocol of ``bench.py`` (``make_city_world(seed=7)``,
 ``make_loop_trajectory(speed=1.5)``, 11 warm-up frames, drift scored on
-100-300 m segments that fit the run; the radius-BPF path runs 200 frames,
-scored on 100-200 m, every other path its first 100, scored on 100 m).  The
-scans are the ones the reference package's stored trajectories were run on:
+100-300 m segments that fit the run; every path runs its first 100
+frames, scored on 100 m, and phase 27 the whole bench protocol: 850 ES
+frames, then 300 BPF).  The scans
+are the ones the reference package's stored trajectories were run on:
 rendered noise-free on the card, plus ``synthetic.shared_range_noise``
-(0.008 m, numpy, seeded by the frame), so that phase 26 can hold every path
-to the reference's own run of it.  Each path runs
+(0.008 m, numpy, seeded by the frame), so that phases 26 and 27 can hold
+every path to the reference's own run of it.  The bench protocol's 850
+scans are rendered once, up front; every path runs a prefix of them.  Each path runs
 with every kernel launch count set to 0 just before it and read just after,
 and checks them.  Every pipeline, single-device or map-sharded, runs as it
 does by default on the card: frames 0-9 eagerly, frame 10 (the first whose
@@ -152,7 +154,23 @@ below holds through replays.  The reruns with a plain version run eagerly
     overflow lanes equal, map sizes within 5 %, drift at 100 frames within
     0.02 points (``utils/parity.py``); the per-frame gaps, the largest and
     its frame (frames numbered from 0), and the gaps after 10, 50 and 100
-    frames (at frames 9, 49 and 99) logged.
+    frames (at frames 9, 49 and 99) logged;
+27. the bench protocol, through the runner's own function
+    (``pfilter_tpu_torch.bench.run_bench``, what ``python -m
+    pfilter_tpu_torch.bench --reference tests/data/torch_reference_v1.npz``
+    runs) on the scans rendered up front: 850 ES frames, then BPF over the
+    first 300, at ``kitti_config()``, held to the reference's stored
+    850-frame ES and 300-frame BPF runs (``parity.compare_long``: frames 0-99
+    with phase 26's gates; every frame's overflow lanes equal, its pose
+    within 0.30 m / 5e-3 rad and its map sizes within 5 %; drift within 0.02
+    points at v1, 0.04 at full; the misses of OPEN_LONG_RUN_GATES, an open
+    item, logged and not gated); no protocol deviation; overflow 0; one
+    capture per pipeline, 839 and 289 frames replayed; kNN launches 2 x 849
+    and 3 x 299, no PCA launch and one work-list launch per kNN launch
+    (each path's counts set to 0 just before it and read just after it);
+    drift below 0.783 % at v1 and full; frames 0-99 bit for bit phases 3
+    and 8; the map peaks against their caps, ms/frame and the gaps every 50
+    frames logged.
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
 is present.  Prints the script's wall time.  The last three lines are a
@@ -165,7 +183,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -175,7 +192,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-FRAMES = 200  # rendered scans; the radius-BPF path runs all of them (100-200 m segments score)
+FRAMES = 100  # the radius-BPF path's frames (100 m segments score; the reference's stored run holds 60)
 # The script must finish well inside the chip run's time limit, and the host
 # takes 0.4-0.8 s per frame: ES and default BPF run 100 frames (100 m
 # segments still score), as do the three option paths of phases 19-21.
@@ -209,6 +226,11 @@ FLOPS_PER_HIT = 16  # 10 adds + 6 products per (query, in-ball candidate)
 TPU_BPF_DRIFT = 0.3609  # the reference package's BPF v1 drift on a TPU v5 lite (BENCH_r05.json)
 RADIUS_OVERRIDES = ("pca.impl=radius", "capacity.frontend_tile_cap=5120")
 REFERENCE = Path(__file__).resolve().parent / "tests" / "data" / "torch_reference_v1.npz"  # phase 26 (tools/torch_reference_trajectories.py)
+# The long-run gates of ``parity.compare_long`` that the port's full-width
+# runs miss past the loop's first corner, an open item (ROADMAP.md, Queue 3):
+# phase 27 logs these misses and gates every other; ``python -m
+# pfilter_tpu_torch.bench`` exits non-zero on them until a new bound is agreed.
+OPEN_LONG_RUN_GATES = {"es": ("pose", "map_size", "drift_full"), "bpf": ("map_size",)}
 PLAIN_REPEATS = 5
 MEAN_TOL_M = 1e-4
 COV_TOL_PER_POINT = 1e-3
@@ -237,14 +259,6 @@ def check(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def rotation_angle(q1, q2) -> np.ndarray:
     """Angle (rad) of the relative rotation between wxyz quaternions, per row."""
     a, b = np.asarray(q1, np.float64), np.asarray(q2, np.float64)
@@ -258,14 +272,9 @@ def render_all(cfg, world, poses, synthetic, dev):
     (rendering is input generation, not the system under test): noise-free,
     plus the range noise the reference's stored trajectories were run with
     (``synthetic.shared_range_noise``, numpy, 0.008 m)."""
-    cap = cfg.capacity.scan_points
-    frames = []
-    for xyz, valid in zip(*synthetic.render_shared_sequence(world, poses, cfg.lidar, AZIMUTH, device=dev)):
-        n = min(xyz.shape[0], cap)
-        x = torch.zeros((cap, 3), dtype=torch.float32, device=dev)
-        v = torch.zeros(cap, dtype=torch.bool, device=dev)
-        x[:n], v[:n] = xyz[:n], valid[:n]
-        frames.append((x, v))
+    from pfilter_tpu_torch import bench
+
+    frames = bench.pad_scans(cfg, *synthetic.render_shared_sequence(world, poses, cfg.lidar, AZIMUTH, device=dev))
     torch.cuda.synchronize()
     return frames
 
@@ -907,7 +916,7 @@ def kitti_runner_phase(cfg, world, root, zero_counts, read_counts):
     KITTI sequence, read them back through the port's native prefetcher and
     run ``run_kitti.main`` on them; check the result against the gates and
     against an ``ESPipeline`` fed the same scans as CUDA tensors."""
-    from pfilter_tpu_torch import run_kitti
+    from pfilter_tpu_torch import bench, run_kitti
     from pfilter_tpu_torch.utils import kitti, metrics, synthetic
 
     dev = torch.device("cuda")
@@ -915,8 +924,7 @@ def kitti_runner_phase(cfg, world, root, zero_counts, read_counts):
     t0 = time.perf_counter()
     xyz, valid = synthetic.render_sequence(world, sub, cfg.lidar, AZIMUTH, noise=0.008, device=dev)
     scans = [xyz[i][valid[i]].cpu().numpy() for i in range(RUNNER_FRAMES)]
-    gt = metrics.poses_to_matrices(np.asarray(sub.q), np.asarray(sub.t))
-    gt = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    gt = bench.ground_truth(sub)
     write_kitti_layout(root / "kitti", RUNNER_SEQ, scans, gt)
     log(f"  rendered {RUNNER_FRAMES} scans ({min(map(len, scans))}-{max(map(len, scans))} points) and wrote them "
         f"as sequence {RUNNER_SEQ} in {time.perf_counter() - t0:.1f} s")
@@ -1548,6 +1556,74 @@ def parity_phase(runs, gt, phase, cfg_bpf, frames):
     check(not failed, f"parity with the reference: {failed}")
 
 
+def bench_phase(frames, gt, render_s, es, bpf, phase, launches):
+    """Phase 27: the bench protocol through the runner's own function
+    (``pfilter_tpu_torch.bench.run_bench``, as ``python -m
+    pfilter_tpu_torch.bench --reference REFERENCE`` runs it) on the scans
+    rendered up front: 850 ES frames, then BPF over the first 300, at
+    ``kitti_config()``.  Gates: the runner's own (overflow 0, one capture and
+    every later frame replayed, kNN launches, drift below DRIFT_BAR, the
+    long-run parity of ``parity.compare_long`` for ES and for BPF but for
+    the gates in OPEN_LONG_RUN_GATES, which are logged), the whole protocol
+    run (no deviation), each path's launch counts (set to 0 just before it
+    and read just after it by the runner) with one work-list launch per kNN
+    launch and no PCA launch, and frames 0-99 bit for bit phases 3 and 8."""
+    from pfilter_tpu_torch import bench
+    from pfilter_tpu_torch.config import kitti_config
+    from pfilter_tpu_torch.utils import parity
+
+    p = bench.PROTOCOL
+    phase("phase 27: the bench protocol (pfilter_tpu_torch.bench.run_bench --reference %s): %d ES frames, then %d BPF"
+          % (REFERENCE.relative_to(REFERENCE.parents[2]), p["frames"], p["bpf_frames"]))
+    args = bench.parse_args(["--reference", str(REFERENCE)])
+    cap = kitti_config().capacity
+    r, detail = bench.run_bench(args, kitti_config(), frames, gt, time.perf_counter(), render_s)
+    log("  " + json.dumps(r))
+    n_es, n_bpf = p["frames"], p["bpf_frames"]
+    log(f"  ES: {r['frames']} frames, protocol ms/frame {r['mean_ms_per_frame']:.2f} over {r['frames'] - p['warmup']} frames, replayed "
+        f"{r['replayed_ms_per_frame']['es']:.2f} over {r['replays']['es']}; drift v1 {r['drift_t_pct']:.4f} %, full "
+        f"{r['drift_t_pct_full_protocol']:.4f} %, ATE {r['ate_rmse_m']:.4f} m; overflow {r['overflow_total']}")
+    log(f"  ES maps: edge peak {r['edge_map_peak']} of {cap.edge_map_points}, surf peak {r['surf_map_peak']} of {cap.surf_map_points} "
+        f"(frame 0's seed), after frame 0 {r['map_peaks_after_seed']}; last {r['edge_map_size']}, {r['surf_map_size']}")
+    log(f"  BPF: {r['bpf_frames']} frames, protocol ms/frame {1e3 / r['bpf_fps']:.2f}, replayed {r['replayed_ms_per_frame']['bpf']:.2f} "
+        f"over {r['replays']['bpf']}; drift v1 {r['bpf_drift_t_pct']:.4f} %; overflow {r['bpf_overflow_total']}; maps (beam, pillar, "
+        f"facade) last {r['bpf_map_sizes']}, peaks {r['bpf_map_peaks']} of {[cap.bpf_line_map_points] * 2 + [cap.bpf_plane_map_points]}")
+    for name in ("es", "bpf"):
+        res = detail["parity"][name]
+        log("  " + parity.summary_long(name, res))
+        log(f"  {name} gap every 50 frames (after 50, 100, ...), cm: " + " ".join(f"{g * 100:.2f}" for g in res["gap_t_m"][49::50]))
+        log(f"  {name} gap every 50 frames, mrad: " + " ".join(f"{g * 1e3:.3f}" for g in res["gap_rad"][49::50]))
+    open_misses = set()
+    for name in ("es", "bpf"):
+        for g, m in detail["parity"][name]["missed"].items():
+            if g in OPEN_LONG_RUN_GATES[name]:
+                log(f"  {name}: long-run gate {g!r} missed, open (ROADMAP Queue 3; the runner exits non-zero on it): {m}")
+                open_misses.add(f"{name} against the reference: {m}")
+    gated = [f for f in r["failures"] if f not in open_misses]
+    check(not gated, f"bench protocol: {gated}")
+    check(r["frames"] == n_es and r.get("bpf_frames") == n_bpf and not r["protocol_deviation"],
+          f"bench protocol: {r['frames']} ES and {r.get('bpf_frames')} BPF frames, deviation {r['protocol_deviation']}")
+    check(r["overflow_total"] == 0 and r["bpf_overflow_total"] == 0, "bench protocol: overflow")
+    check(r["captures"] == {"es": 1, "bpf": 1} and r["replays"] == {"es": n_es - WARMUP, "bpf": n_bpf - WARMUP},
+          f"bench protocol: captures {r['captures']}, replays {r['replays']}")
+    want = {"es": 2 * (n_es - 1), "bpf": 3 * (n_bpf - 1)}
+    check(r["knn_launches"] == want, f"bench protocol: kNN launches {r['knn_launches']} != {want}")
+    for name in ("es", "bpf"):
+        c = r["kernel_launches"][name]
+        log(f"  bench_{name}: launches read around the path {c}")
+        check(c == {"knn_tiled": want[name], "pca_radius": 0, "work_list": want[name]},
+              f"bench protocol: {name} launches {c}, not {want[name]} kNN, 0 PCA, one work list per kNN and PCA launch")
+        launches[f"bench_{name}"] = c
+    check(min(r["n_segments"], r["full_protocol_n_segments"]) > 0 and max(r["drift_t_pct"], r["drift_t_pct_full_protocol"], r["bpf_drift_t_pct"]) < DRIFT_BAR,
+          f"bench protocol: drift {r['drift_t_pct']} / {r['drift_t_pct_full_protocol']} / {r['bpf_drift_t_pct']} not below {DRIFT_BAR}")
+    for name, ref, ph in (("es", es, 3), ("bpf", bpf, 8)):
+        run = detail["records"][name]
+        n = len(ref["t"])
+        same = np.array_equal(run["q"][:n], ref["q"]) and np.array_equal(run["t"][:n], ref["t"])
+        log(f"  {name}: frames 0-{n - 1} bit for bit phase {ph}'s: {same}")
+        check(same, f"bench protocol: {name} frames 0-{n - 1} differ from phase {ph}'s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1558,6 +1634,7 @@ def main() -> int:
     from pfilter_tpu_torch.ops import knn_tiled as knn
     from pfilter_tpu_torch.ops import pca_radius as pr
     from pfilter_tpu_torch.models.global_map import GlobalMap
+    from pfilter_tpu_torch import bench
     from pfilter_tpu_torch.pipeline import make_pipeline
     from pfilter_tpu_torch.utils import metrics, synthetic
 
@@ -1578,7 +1655,7 @@ def main() -> int:
         return c
 
     phase("phase 1: device")
-    smi = nvidia_smi_line()
+    smi = bench.device_line(dev)
     log(f"  nvidia-smi: {smi}")
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1597,12 +1674,19 @@ def main() -> int:
     cfg_bpf = cfg.replace(mode="bpf")
     cfg_rad = apply_dotted_overrides(cfg_bpf, RADIUS_OVERRIDES)
     world = synthetic.make_city_world(seed=7)
-    poses = synthetic.make_loop_trajectory(FRAMES, speed=SPEED)
+    # The bench protocol's 850 scans, rendered once: every path runs a prefix
+    # of the same loop (the first FRAMES poses are the FRAMES-frame loop's).
+    n_render = bench.PROTOCOL["frames"]
+    poses = synthetic.make_loop_trajectory(n_render, speed=SPEED)
+    short = synthetic.make_loop_trajectory(FRAMES, speed=SPEED)
+    same = np.array_equal(np.asarray(poses.q)[:FRAMES], np.asarray(short.q)) and np.array_equal(np.asarray(poses.t)[:FRAMES], np.asarray(short.t))
+    log(f"  make_loop_trajectory({n_render})'s first {FRAMES} poses equal make_loop_trajectory({FRAMES})'s: {same}")
+    check(same, f"the {n_render}-frame loop does not start with the {FRAMES}-frame loop")
     t0 = time.perf_counter()
     frames = render_all(cfg, world, poses, synthetic, dev)
-    log(f"  rendered {FRAMES} scans on the card in {time.perf_counter() - t0:.1f} s")
-    gt = metrics.poses_to_matrices(np.asarray(poses.q), np.asarray(poses.t))
-    gt = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    render_s = time.perf_counter() - t0
+    log(f"  rendered {n_render} scans on the card in {render_s:.1f} s")
+    gt = bench.ground_truth(poses)
     launches = {}
 
     phase("phase 3: ES odometry on the card (kitti_config, v1 protocol, %d frames)" % ES_FRAMES)
@@ -1704,7 +1788,7 @@ def main() -> int:
 
     phase("phase 13: PCA kernel vs plain version at main-path shapes and edge cases")
     nt, tc, tcap = cfg_rad.capacity.knn_tiles, cfg_rad.capacity.tile_cells, cfg_rad.capacity.frontend_tile_cap
-    widest = [int(knn._halo_ranges(tiled_cloud(knn, x, nonground_cloud(cfg_rad, x, v), nt, tc, tcap), nt, 2**31 - 1)[1].max()) for x, v in frames]
+    widest = [int(knn._halo_ranges(tiled_cloud(knn, x, nonground_cloud(cfg_rad, x, v), nt, tc, tcap), nt, 2**31 - 1)[1].max()) for x, v in frames[:FRAMES]]
     log(f"  widest 3-tile halo row over all {FRAMES} frames: {max(widest)} slots (frame {int(np.argmax(widest))}); "
         f"cap 3 x {tcap} = {3 * tcap}; the shipped 3 x {cfg.capacity.frontend_tile_cap} = {3 * cfg.capacity.frontend_tile_cap}")
     xyz_l, valid_l = frames[FRAMES - 1]
@@ -1791,6 +1875,7 @@ def main() -> int:
     parity_runs.update({name: r["records"] for name, r in option_runs.items()})
     parity_runs.update({"es_sharded_m1": sharded_records["es"], "bpf_sharded_m1": sharded_records["bpf"]})
     parity_phase(parity_runs, gt, phase, cfg_bpf, frames)
+    bench_phase(frames, gt, render_s, es, bpf, phase, launches)
     log(f"  total wall {time.perf_counter() - t_start:.1f} s")
 
     kernels = {

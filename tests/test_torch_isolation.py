@@ -1,8 +1,10 @@
 """The port stands alone: ``pfilter_tpu_torch`` (its KITTI runner
-``run_kitti.py`` included) and ``chip_smoke.py`` import neither JAX, nor the
-reference package, nor the reference's ``tools/``, checked two ways — by walking their
-import statements, and by importing every module in a fresh interpreter in
-which ``jax``, ``jaxlib`` and ``pfilter_tpu`` cannot be imported."""
+``run_kitti.py`` and its bench runner ``bench.py`` included), ``chip_smoke.py``
+and the port's card tools (``tools/torch_*_ab.py``) import neither JAX, nor
+the reference package, nor the reference's ``tools/``, checked two ways — by
+walking their import statements, and by importing every module in a fresh
+interpreter in which ``jax``, ``jaxlib`` and ``pfilter_tpu`` cannot be
+imported."""
 
 import ast
 import os
@@ -18,7 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "pfilter_tpu", "tools")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*_ab.py"))
 
 
 def _imported_roots(path):
@@ -49,6 +51,10 @@ names = [m.name for m in pkgutil.walk_packages(pfilter_tpu_torch.__path__, "pfil
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+import importlib.util
+for path in {[str(p) for p in sorted((ROOT / "tools").glob("torch_*_ab.py"))]!r}:
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} and sys.modules[m] is not None)
 assert not loaded, loaded
 print(len(names))
@@ -61,8 +67,9 @@ print(len(names))
 
 def test_runner_is_covered():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
-    for mod in ("run_kitti.py", "models/global_map.py", "utils/checkpoint.py", "utils/kitti.py", "utils/profiling.py"):
+    for mod in ("run_kitti.py", "bench.py", "models/global_map.py", "utils/checkpoint.py", "utils/kitti.py", "utils/profiling.py"):
         assert f"pfilter_tpu_torch/{mod}" in names
+    assert "tools/torch_knn_packed_keys_ab.py" in names
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -7,6 +7,9 @@ Tolerance against the Pallas kernel is the reference's own
 mantissa bits, so its distances run up to 2^-10 relative low; the port's
 are exact fp32, and its selection breaks near-ties by true distance."""
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -113,6 +116,46 @@ def test_query_matches_bruteforce_within_gate():
     np.testing.assert_allclose(n(tr.sqdist)[gated], n(ref.sqdist)[gated], rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(n(tr.idx)[gated], n(ref.idx)[gated])
 
+
+
+def _packed_ab():
+    """``tools/torch_knn_packed_keys_ab.py``, imported by path."""
+    path = Path(__file__).resolve().parent.parent / "tools" / "torch_knn_packed_keys_ab.py"
+    spec = importlib.util.spec_from_file_location("torch_knn_packed_keys_ab", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        dict(seed=1, n_map=1500, cap=2048, spread=6.0, dense_row=0, qspread=5.0, inv=0.0),
+        dict(seed=2, n_map=600, cap=1024, spread=25.0, dense_row=0, qspread=40.0, inv=0.25),
+        dict(seed=3, n_map=1400, cap=2048, spread=10.0, dense_row=700, qspread=6.0, inv=0.1),
+        dict(seed=5, n_map=1900, cap=2048, spread=30.0, dense_row=0, qspread=30.0, inv=0.0),
+    ],
+)
+def test_packed_key_emulation_matches_pallas_kernel(case):
+    """The A/B tool's packed-key kNN (its variant (b)) computes what the
+    reference's Pallas kernel computes: the same neighbours, and the same
+    lane-truncated distances but on at most one in a thousand returned (the
+    XLA CPU dot's rounding is not reproduced everywhere), each such within one
+    truncation step."""
+    jmap, tmap = _maps(case["seed"], case["n_map"], case["cap"], case["spread"], case["dense_row"])
+    q, qv = _queries(case["seed"], 512, case["qspread"], case["inv"])
+    ts = tknn.sort_queries(t(q), t(qv), tmap.origin, NT, TILE_CELLS)
+    sq = q[n(ts.order)]
+    jr = jknn.query_tiled_sorted(jmap, jnp.array(sq), jnp.array(n(ts.bounds)), NT, TILE_CELLS, TILE_CAP, interpret=True)
+    jd, ji = np.asarray(jr.sqdist), np.asarray(jr.idx)
+    pr = _packed_ab().query_tiled_sorted_packed(tmap, t(sq), ts.bounds, NT, TILE_CELLS, TILE_CAP)
+    pd, pi = n(pr.sqdist), n(pr.idx)
+    fin = np.isfinite(jd)
+    np.testing.assert_array_equal(np.isfinite(pd), fin)
+    np.testing.assert_array_equal(pi[fin], ji[fin])
+    diff = pd[fin] != jd[fin]
+    assert diff.sum() <= max(1, fin.sum() // 1000)
+    np.testing.assert_allclose(pd[fin][diff], jd[fin][diff], rtol=TRUNC, atol=0)
 
 def test_fewer_candidates_than_k_and_empty_map():
     jmap, tmap = _maps(5, 3, 128, 1.0)
