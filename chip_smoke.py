@@ -157,20 +157,26 @@ below holds through replays.  The reruns with a plain version run eagerly
     frames (at frames 9, 49 and 99) logged;
 27. the bench protocol, through the runner's own function
     (``pfilter_tpu_torch.bench.run_bench``, what ``python -m
-    pfilter_tpu_torch.bench --reference tests/data/torch_reference_v1.npz``
-    runs) on the scans rendered up front: 850 ES frames, then BPF over the
-    first 300, at ``kitti_config()``, held to the reference's stored
-    850-frame ES and 300-frame BPF runs (``parity.compare_long``: frames 0-99
-    with phase 26's gates; every frame's overflow lanes equal, its pose
-    within 0.30 m / 5e-3 rad and its map sizes within 5 %; drift within 0.02
-    points at v1, 0.04 at full; the misses of OPEN_LONG_RUN_GATES, an open
-    item, logged and not gated); no protocol deviation; overflow 0; one
-    capture per pipeline, 839 and 289 frames replayed; kNN launches 2 x 849
-    and 3 x 299, no PCA launch and one work-list launch per kNN launch
-    (each path's counts set to 0 just before it and read just after it);
-    drift below 0.783 % at v1 and full; frames 0-99 bit for bit phases 3
-    and 8; the map peaks against their caps, ms/frame and the gaps every 50
-    frames logged.
+    pfilter_tpu_torch.bench --reference tests/data/torch_reference_v1.npz
+    --states tests/data/torch_reference_states_v1`` runs) on the scans
+    rendered up front: 850 ES frames, then BPF over the first 300, at
+    ``kitti_config()``, held to the reference's stored 850-frame ES and
+    300-frame BPF runs (``parity.compare_long``: frames 0-99 with phase 26's
+    gates; every frame's poses finite and overflow lanes equal; drift (v1,
+    full) and each map's mean size over frames 100 on within the bands of
+    the port's own spread, ``parity.LONG_DRIFT_BAND`` and
+    ``LONG_MAP_MEAN_BAND``); then the six windows (``parity.compare_window``:
+    the reference's own state after ES frames 149, 294, 480, 799 and BPF
+    frames 149, 249 restored in the port, 50 frames run from it, held to the
+    reference's with phase 26's gates over each window's
+    ``parity.WINDOW_LENGTHS``; one capture and 49 replays, kNN launches 2 x
+    50 / 3 x 50 a window); every gate gated; no protocol deviation; overflow
+    0; one capture per pipeline, 839 and 289 frames replayed; kNN launches 2
+    x 849 and 3 x 299, no PCA launch and one work-list launch per kNN launch
+    (each path's and each window's counts set to 0 just before it and read
+    just after it); drift below 0.783 % at v1 and full; frames 0-99 bit for
+    bit phases 3 and 8; the map peaks against their caps, ms/frame and the
+    gaps every 50 frames logged.
 
 Exits non-zero, without the final line, if any phase fails or no CUDA card
 is present.  Prints the script's wall time.  The last three lines are a
@@ -226,11 +232,7 @@ FLOPS_PER_HIT = 16  # 10 adds + 6 products per (query, in-ball candidate)
 TPU_BPF_DRIFT = 0.3609  # the reference package's BPF v1 drift on a TPU v5 lite (BENCH_r05.json)
 RADIUS_OVERRIDES = ("pca.impl=radius", "capacity.frontend_tile_cap=5120")
 REFERENCE = Path(__file__).resolve().parent / "tests" / "data" / "torch_reference_v1.npz"  # phase 26 (tools/torch_reference_trajectories.py)
-# The long-run gates of ``parity.compare_long`` that the port's full-width
-# runs miss past the loop's first corner, an open item (ROADMAP.md, Queue 3):
-# phase 27 logs these misses and gates every other; ``python -m
-# pfilter_tpu_torch.bench`` exits non-zero on them until a new bound is agreed.
-OPEN_LONG_RUN_GATES = {"es": ("pose", "map_size", "drift_full"), "bpf": ("map_size",)}
+STATES = REFERENCE.parent / "torch_reference_states_v1"  # phase 27's windows (tools/torch_reference_trajectories.py --states)
 PLAIN_REPEATS = 5
 MEAN_TOL_M = 1e-4
 COV_TOL_PER_POINT = 1e-3
@@ -1559,25 +1561,28 @@ def parity_phase(runs, gt, phase, cfg_bpf, frames):
 def bench_phase(frames, gt, render_s, es, bpf, phase, launches):
     """Phase 27: the bench protocol through the runner's own function
     (``pfilter_tpu_torch.bench.run_bench``, as ``python -m
-    pfilter_tpu_torch.bench --reference REFERENCE`` runs it) on the scans
-    rendered up front: 850 ES frames, then BPF over the first 300, at
-    ``kitti_config()``.  Gates: the runner's own (overflow 0, one capture and
-    every later frame replayed, kNN launches, drift below DRIFT_BAR, the
-    long-run parity of ``parity.compare_long`` for ES and for BPF but for
-    the gates in OPEN_LONG_RUN_GATES, which are logged), the whole protocol
-    run (no deviation), each path's launch counts (set to 0 just before it
-    and read just after it by the runner) with one work-list launch per kNN
-    launch and no PCA launch, and frames 0-99 bit for bit phases 3 and 8."""
+    pfilter_tpu_torch.bench --reference REFERENCE --states STATES`` runs it)
+    on the scans rendered up front: 850 ES frames, then BPF over the first
+    300, at ``kitti_config()``, then the windows of STATES.  Gates: the
+    runner's own (overflow 0, one capture and every later frame replayed,
+    kNN launches, drift below DRIFT_BAR, the free runs' parity of
+    ``parity.compare_long``, every window's parity, capture and launches),
+    the whole protocol run (no deviation), each path's and each window's
+    launch counts (set to 0 just before it and read just after it by the
+    runner) with one work-list launch per kNN launch and no PCA launch, and
+    frames 0-99 bit for bit phases 3 and 8."""
     from pfilter_tpu_torch import bench
     from pfilter_tpu_torch.config import kitti_config
     from pfilter_tpu_torch.utils import parity
 
     p = bench.PROTOCOL
-    phase("phase 27: the bench protocol (pfilter_tpu_torch.bench.run_bench --reference %s): %d ES frames, then %d BPF"
-          % (REFERENCE.relative_to(REFERENCE.parents[2]), p["frames"], p["bpf_frames"]))
-    args = bench.parse_args(["--reference", str(REFERENCE)])
+    root = REFERENCE.parents[2]
+    phase("phase 27: the bench protocol (pfilter_tpu_torch.bench.run_bench --reference %s --states %s): %d ES frames, then %d BPF, "
+          "then %d windows" % (REFERENCE.relative_to(root), STATES.relative_to(root), p["frames"], p["bpf_frames"], len(parity.WINDOW_LENGTHS)))
+    args = bench.parse_args(["--reference", str(REFERENCE), "--states", str(STATES)])
     cap = kitti_config().capacity
-    r, detail = bench.run_bench(args, kitti_config(), frames, gt, time.perf_counter(), render_s)
+    t0 = time.perf_counter()
+    r, detail = bench.run_bench(args, kitti_config(), frames, gt, t0, render_s)
     log("  " + json.dumps(r))
     n_es, n_bpf = p["frames"], p["bpf_frames"]
     log(f"  ES: {r['frames']} frames, protocol ms/frame {r['mean_ms_per_frame']:.2f} over {r['frames'] - p['warmup']} frames, replayed "
@@ -1593,14 +1598,16 @@ def bench_phase(frames, gt, render_s, es, bpf, phase, launches):
         log("  " + parity.summary_long(name, res))
         log(f"  {name} gap every 50 frames (after 50, 100, ...), cm: " + " ".join(f"{g * 100:.2f}" for g in res["gap_t_m"][49::50]))
         log(f"  {name} gap every 50 frames, mrad: " + " ".join(f"{g * 1e3:.3f}" for g in res["gap_rad"][49::50]))
-    open_misses = set()
-    for name in ("es", "bpf"):
-        for g, m in detail["parity"][name]["missed"].items():
-            if g in OPEN_LONG_RUN_GATES[name]:
-                log(f"  {name}: long-run gate {g!r} missed, open (ROADMAP Queue 3; the runner exits non-zero on it): {m}")
-                open_misses.add(f"{name} against the reference: {m}")
-    gated = [f for f in r["failures"] if f not in open_misses]
-    check(not gated, f"bench protocol: {gated}")
+    windows = r["reference"]["windows"]
+    for name, w in windows.items():
+        res = detail["windows"][name]
+        log(f"  window {name}: gap per frame, cm: " + " ".join(f"{g * 100:.2f}" for g in res["all"]["gap_t_m"]))
+        per = bench.KNN_PER_FRAME[w["path"]] * w["frames"]
+        check(w["kernel_launches"] == {"knn_tiled": per, "pca_radius": 0, "work_list": per} and w["captures"] == 1 and w["replays"] == w["frames"] - 1,
+              f"window {name}: launches {w['kernel_launches']}, captures {w['captures']}, replays {w['replays']}")
+        launches[f"window_{name}"] = w["kernel_launches"]
+    check(sorted(windows) == sorted(parity.WINDOW_LENGTHS), f"bench protocol: windows {sorted(windows)}")
+    check(not r["failures"], f"bench protocol: {r['failures']}")
     check(r["frames"] == n_es and r.get("bpf_frames") == n_bpf and not r["protocol_deviation"],
           f"bench protocol: {r['frames']} ES and {r.get('bpf_frames')} BPF frames, deviation {r['protocol_deviation']}")
     check(r["overflow_total"] == 0 and r["bpf_overflow_total"] == 0, "bench protocol: overflow")
@@ -1622,6 +1629,7 @@ def bench_phase(frames, gt, render_s, es, bpf, phase, launches):
         same = np.array_equal(run["q"][:n], ref["q"]) and np.array_equal(run["t"][:n], ref["t"])
         log(f"  {name}: frames 0-{n - 1} bit for bit phase {ph}'s: {same}")
         check(same, f"bench protocol: {name} frames 0-{n - 1} differ from phase {ph}'s")
+    log(f"  phase 27 wall {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:

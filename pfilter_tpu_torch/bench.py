@@ -1,6 +1,7 @@
 """The bench protocol of the reference package's ``bench.py``, run by the port.
 
     python -m pfilter_tpu_torch.bench [--reference tests/data/torch_reference_v1.npz]
+        [--states tests/data/torch_reference_states_v1]
 
 Renders the v1 city loop (``make_city_world(seed=7)``,
 ``make_loop_trajectory(850, speed=1.5)``, HDL-64 at 1800 azimuth) on the
@@ -16,14 +17,19 @@ for every later frame.
 The scans are ``synthetic.render_shared_sequence``'s: noise-free renders
 plus ``synthetic.shared_range_noise``, the scans of the reference package's
 stored runs, so ``--reference FILE`` (``tests/data/torch_reference_v1.npz``)
-holds both runs to the reference's own, frame by frame
-(``utils/parity.compare_long``).  They are not ``bench.py``'s scans, whose
+holds both free runs to the reference's own (``utils/parity.compare_long``:
+frames 0-99 frame by frame; overflow lanes every frame; drift and each map's
+mean size within the bands of the port's own spread), and ``--states DIR``
+(``tests/data/torch_reference_states_v1``) then runs every window: the
+reference's own state at depth restored into the port, the next 50 frames
+run from it and held to the reference's frame by frame
+(``utils/parity.compare_window``).  They are not ``bench.py``'s scans, whose
 range noise comes from the reference renderer's own generator.
 
 Prints exactly one JSON line: every key of ``bench.py``'s, with the same
 meaning, and ``captures``, ``replays``, ``knn_launches``, ``kernel_launches``,
 ``replayed_ms_per_frame``, ``stopped_by_budget``, ``render_note``, the
-``reference`` block and ``failures``, every gate missed.  Exits non-zero
+``reference`` block (with ``windows``) and ``failures``, every gate missed.  Exits non-zero
 when ``failures`` is not empty.  Progress goes to stderr.
 """
 
@@ -34,6 +40,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -142,7 +149,7 @@ def score_protocol(gt: np.ndarray, q: np.ndarray, t: np.ndarray) -> dict:
                 ate=metrics.ate_rmse(gt, est), path=float(metrics.trajectory_distances(gt)[-1]))
 
 
-def hold_to_reference(records: dict, ref: dict, scores: dict, gt: np.ndarray) -> dict:
+def hold_to_reference(records: dict, ref: dict, scores: dict, gt: np.ndarray, path: str) -> dict:
     """``parity.compare_long`` of a run (``records``: ``parity.records_arrays``)
     against its stored path ``ref`` (``scores``: the sidecar's scores of that
     path), the port's drift taken over the same frames and lengths as each
@@ -157,7 +164,7 @@ def hold_to_reference(records: dict, ref: dict, scores: dict, gt: np.ndarray) ->
         est = metrics.poses_to_matrices(records["q"][:n], records["t"][:n])
         drift[name] = metrics.kitti_drift(gt[:n], est, lengths=tuple(s["lengths"]), step=10)["t_err_pct"]
         ref_drift[name] = s["drift_t_pct"]
-    return parity.compare_long(records, ref, drift, ref_drift)
+    return parity.compare_long(records, ref, drift, ref_drift, path)
 
 
 def run_segment(pipe, frames: list, n_frames: int, warmup: int, deadline: float, log) -> dict:
@@ -257,6 +264,52 @@ def run_path(mode: str, cfg, frames: list, gt: np.ndarray, n_frames: int, warmup
     return pipe, seg, launches, s
 
 
+def run_windows(states, ref: dict, cfg, frames: list, log, failures: list, detail: dict) -> dict:
+    """Every window of the stored reference states in ``states``
+    (``states.json``'s ``windows``, one directory each): the reference's
+    state restored into the port and the next WINDOW_FRAMES frames run from
+    it (``parity.compare_window``), held to the reference's frames (those of
+    ``ref``, ``parity.load_reference``'s runs) over the
+    window's ``parity.WINDOW_LENGTHS``; on a CUDA device one capture (the
+    first frame) and KNN_PER_FRAME kNN launches per frame, the counts set to
+    0 just before each window and read just after it.  Failures go to
+    ``failures``, each window's record to the returned dict and
+    ``detail["windows"]``."""
+    from pfilter_tpu_torch.utils import parity
+
+    states = Path(states)
+    windows = json.loads((states / "states.json").read_text())["windows"]
+    if set(windows) != set(parity.WINDOW_LENGTHS):
+        failures.append(f"windows: {states} holds {sorted(windows)}, parity.WINDOW_LENGTHS {sorted(parity.WINDOW_LENGTHS)}")
+    out, detail["windows"] = {}, {}
+    for name in sorted(set(windows) & set(parity.WINDOW_LENGTHS), key=lambda n: (windows[n]["path"] != "es", windows[n]["step"])):
+        mode = windows[name]["path"]
+        zero_launches()
+        res = parity.compare_window(states / name, cfg.replace(mode=mode), frames, ref)
+        launches = read_launches()
+        detail["windows"][name] = res
+        log(parity.summary_window(name, res))
+        fails = list(res["failures"])
+        n = res["all"]["frames"]
+        if frames[0][0].device.type == "cuda":
+            if res["captures"] != 1 or res["replays"] != n - 1:
+                fails.append(f"{res['captures']} CUDA graphs captured, {res['replays']} frames replayed (want 1 and {n - 1})")
+            if launches["knn_tiled"] != KNN_PER_FRAME[mode] * n:
+                fails.append(f"{launches['knn_tiled']} kNN launches, not {KNN_PER_FRAME[mode] * n}")
+        if launches["work_list"] != launches["knn_tiled"] + launches["pca_radius"]:
+            fails.append(f"launches {launches}: the work list not once per kNN and PCA launch")
+        failures.extend(f"window {name}: {f}" for f in fails)
+        out[name] = {
+            "path": mode, "start_frame": res["step"], "frames": n, "W": res["length"],
+            "max_gap_m": res["max_gap_t_m"], "max_gap_frame": res["max_gap_t_frame"],
+            "max_gap_rad": res["max_gap_rad"], "max_gap_rad_frame": res["max_gap_rad_frame"],
+            "map_size_rel": res["map_size_rel"], "map_size_rel_at": res["map_size_rel_at"],
+            "all_frames": {"max_gap_m": res["all"]["max_gap_t_m"], "max_gap_rad": res["all"]["max_gap_rad"], "map_size_rel": res["all"]["map_size_rel"]},
+            "captures": res["captures"], "replays": res["replays"], "kernel_launches": launches, "failures": fails,
+        }
+    return out
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=PROTOCOL["frames"])
@@ -270,9 +323,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="wall budget: the steady loop stops early past 85 %% of it (the BPF one past 92 %%)")
     ap.add_argument("--device", default="cuda", help="cuda (the default; never falls back) or cpu")
     ap.add_argument("--reference", default=None, help="hold both runs to these stored reference runs (.npz beside its .json)")
+    ap.add_argument("--states", default=None, metavar="DIR",
+                    help="after the free runs, run every window of these stored reference states (needs --reference)")
     args = ap.parse_args(argv)
     if not 1 <= args.warmup < args.frames:
         ap.error("need 1 <= --warmup < --frames")
+    if args.states is not None and args.reference is None:
+        ap.error("--states needs --reference")
     return args
 
 
@@ -293,7 +350,7 @@ def run_bench(args, cfg, frames: list, gt: np.ndarray, t_wall0: float, render_s:
         detail["records"][name] = rec = parity.records_arrays(pipe.records)
         if ref is None:
             return
-        res = hold_to_reference(rec, ref[name], side["paths"][name]["scores"], gt)
+        res = hold_to_reference(rec, ref[name], side["paths"][name]["scores"], gt, name)
         detail["parity"][name] = res
         log(parity.summary_long(name, res))
         failures.extend(f"{name} against the reference: {f}" for f in res["failures"])
@@ -303,7 +360,8 @@ def run_bench(args, cfg, frames: list, gt: np.ndarray, t_wall0: float, render_s:
             "gap_at": {str(f): g for f, g in res["gap_at"].items()},
             "drift": res["drift"], "drift_ref": res["drift_ref"],
             "overflow_frames_differing": res["overflow_frames_differing"],
-            "map_size_rel": res["map_size_rel"], "map_size_rel_at": res["map_size_rel_at"],
+            "drift_band": res["drift_band"], "map_size_rel": res["map_size_rel"], "map_size_rel_at": res["map_size_rel_at"],
+            "map_mean": res.get("map_mean"), "map_mean_ref": res.get("map_mean_ref"), "map_mean_band": res.get("map_mean_band"),
             "missed": sorted(res["missed"]), "failures": res["failures"],
         }
 
@@ -399,6 +457,8 @@ def run_bench(args, cfg, frames: list, gt: np.ndarray, t_wall0: float, render_s:
             result["protocol_deviation"] = deviation or bseg["n_done"] != n_bpf
             log(f"bpf segment done: {result['bpf_fps']:.3f} fps, drift {result['bpf_drift_t_pct']:.4f} %")
             hold("bpf", bpipe)
+    if args.states is not None:
+        reference["windows"] = run_windows(args.states, ref, cfg, frames, log, failures, detail)
     if ref is not None:
         result["reference"] = {"file": str(args.reference), "generator": side["generator"], "platform": side["platform"], **reference}
     result["failures"] = failures

@@ -6,6 +6,8 @@ port's own sensitivity to a last-bit change.
     python3 tools/torch_knn_packed_keys_ab.py [--frames 850] [--device cuda] [--out FILE.json]
     python3 tools/torch_knn_packed_keys_ab.py --variants kernel ulp_up ulp_down [--mode bpf]
     python3 tools/torch_knn_packed_keys_ab.py --variants kernel nudge_x+ nudge_x- nudge_y+ nudge_y- nudge_z+ nudge_z-
+    python3 tools/torch_knn_packed_keys_ab.py --ensemble --jobs 3 --spread-out tests/data/torch_port_spread_v1.json [--mode bpf]
+    python3 tools/torch_knn_packed_keys_ab.py --windows tests/data/torch_reference_states_v1 --jobs 3
     python3 tools/torch_knn_packed_keys_ab.py --classes 3 --device cpu
 
 Runs the port's ES (``kitti_config()``; ``--mode bpf``: BPF, 300 frames) on
@@ -31,26 +33,47 @@ per variant:
     classes from frame 0 on: some 800 points a scan sit exactly on a half
     of a DCVC azimuth bin, where the last bit decides the bin, and the PCA
     classes' thresholds move hundreds of points more;
-(e) ``nudge_<axis><sign>``: as (c), the scans untouched, and the pose in the
-    pipeline's state moved one float32 ulp along one axis once, after frame
-    NUDGE_FRAME (an eager frame): a last-bit change downstream of the
-    front end, as the reference's arithmetic differs from the port's.
+(e) ``nudge_<axis><sign>`` (``parity.NUDGES``: ``nudge_x+`` .. ``nudge_z-``
+    the translation, ``nudge_qx+`` .. ``nudge_qz-`` the rotation
+    quaternion's vector part): as (c), the scans untouched, and the pose in
+    the pipeline's state moved one float32 ulp along one coordinate once,
+    after frame NUDGE_FRAME (an eager frame; ``<nudge>@8``: after frame 8,
+    also eager, before the capture at frame 10): a last-bit change
+    downstream of the front end, as the reference's arithmetic differs from
+    the port's.
 
-Each variant runs in a process of its own (``--jobs`` at a time).  Every run
+``--ensemble`` runs ``ENSEMBLE``: the kernel run and every nudge after
+frame 5 and after frame 8 (25 runs).  A run equal bit for bit to an earlier
+one (a one-ulp nudge of a quaternion component near 0 can round away) counts
+once (``distinct``): it is dropped, and the nudges after frame 7
+(``RESERVE``) are run in their order until the ensemble holds
+ENSEMBLE_RUNS distinct runs.  ``--spread-out FILE`` writes, for the path
+run, each distinct run's drift (v1, full) and each map's mean size over
+frames 100 to the end, the runs dropped, the card and the commit into FILE
+(merged with the other path's entry where FILE exists): the values
+``utils/parity.py``'s bands are derived from (``parity.spread_bands``: 3
+sqrt(2) times their sample standard deviation), and the reference's
+standing among them (``parity.standing``: ``z``, rank).
+
+``--windows DIR`` runs nothing of the above: from each stored reference
+state of DIR (``tools/torch_reference_trajectories.py --states``) it runs
+the port's window as ``parity.run_window`` does, once as it is and once
+per nudge of ``parity.NUDGES`` applied to the restored pose, and prints
+each window's length ``W`` (``parity.window_length``: the frames over which
+every nudged resume stays within half of ``parity.compare``'s per-frame
+gates of the un-nudged one) and the un-nudged resume held to the
+reference's frames over ``W`` and over all 50 (``parity.hold_window``),
+and which nudged resumes equal the un-nudged one bit for bit.
+
+The variants are dealt to ``--jobs`` processes, each rendering the scans once
+and running its share one after another.  Every run
 is held to the reference package's stored run of the path
 (``tests/data/torch_reference_v1.npz``, ``--reference``) with
 ``utils/parity.compare_long``, and, where ``kernel`` ran too, to the
 ``kernel`` run the same way.  Prints, for each, the gap after 10, 50, 100,
 300 and 850 frames in cm and mrad, the largest gap, the drift (v1, full)
 beside the other run's, and a JSON summary last; ``--out`` writes the
-per-frame gaps, poses and map sizes too.  With two or more of the port's
-runs on the card (every variant but ``plain``, bit for bit ``kernel``), it
-first prints their spread, the reference left out (``spread``): the largest
-gap in m and rad, map-size difference and drift difference between any two
-of them, and their drift's range; then the reference's gaps to each run,
-and whether the reference stands inside that spread: its gaps to the
-``kernel`` run no larger than the largest between two of the port's runs,
-its drift within their range.
+per-frame gaps, poses and map sizes too.
 
 ``--classes N`` runs nothing of the above: on the first N scans it counts
 what a one-ulp shift of the scan does to BPF's front end: the points whose
@@ -63,7 +86,6 @@ scans, for a quick check at a small size.
 from __future__ import annotations
 
 import argparse
-import itertools
 import json
 import subprocess
 import sys
@@ -78,12 +100,17 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from pfilter_tpu_torch.ops import knn_tiled  # noqa: E402
+from pfilter_tpu_torch.utils import parity  # noqa: E402
 
 REFERENCE = ROOT / "tests" / "data" / "torch_reference_v1.npz"
-NUDGES = tuple(f"nudge_{axis}{sign}" for axis in "xyz" for sign in "+-")
-VARIANTS = ("plain", "packed", "kernel", "ulp_up", "ulp_down") + NUDGES
-EAGER = ("plain", "packed")  # a plain kNN reads sizes on the host: no CUDA graph
 NUDGE_FRAME = 5  # the nudge follows this frame, before the first capture (frame 10)
+LATE_NUDGE_FRAME = 8  # "<nudge>@8": after this frame instead, also eager
+RESERVE_NUDGE_FRAME = 7  # the reserve's nudges: after this frame, also eager
+ENSEMBLE = ("kernel",) + parity.NUDGES + tuple(f"{n}@{LATE_NUDGE_FRAME}" for n in parity.NUDGES)
+RESERVE = tuple(f"{n}@{RESERVE_NUDGE_FRAME}" for n in parity.NUDGES)  # in this order, for runs ENSEMBLE repeats
+ENSEMBLE_RUNS = len(ENSEMBLE)  # distinct runs a path: the kernel run and 24 nudged ones
+VARIANTS = ("plain", "packed", "kernel", "ulp_up", "ulp_down") + parity.NUDGES + ENSEMBLE[1 + len(parity.NUDGES):] + RESERVE
+EAGER = ("plain", "packed")  # a plain kNN reads sizes on the host: no CUDA graph
 # The reference kernel's key layout (pfilter_tpu/ops/knn_tiled.py:46-53).
 ALIGN = 128  # halo rows are read from 128-slot-aligned starts
 IDX_BITS = 13
@@ -140,45 +167,47 @@ def query_tiled_sorted_packed(tmap, sq_world, bounds, nt: int, tile_cells: int, 
     return knn_tiled.TiledKnnResult(idx=idx, sqdist=sd)
 
 
-def nudge_pose(state, variant: str):
-    """``state`` (``ESState`` or ``BPFState``) with its pose's translation
-    moved one float32 ulp along the axis and toward the sign of ``variant``
-    (``nudge_x+`` ... ``nudge_z-``)."""
-    axis, up = "xyz".index(variant[-2]), variant[-1] == "+"
-    t = state.pose.t.clone()
-    t[axis] = torch.nextafter(t[axis], torch.tensor(float("inf") if up else float("-inf"), device=t.device))
-    return state._replace(pose=state.pose._replace(t=t))
+def nudge_of(variant: str) -> tuple:
+    """``(nudge, frame)`` of a nudged variant (``nudge_x+``, ``nudge_qz-@8``),
+    ``(None, None)`` of any other."""
+    name, _, frame = variant.partition("@")
+    return (name, int(frame) if frame else NUDGE_FRAME) if name in parity.NUDGES else (None, None)
 
 
-def run_variant(args) -> None:
-    """One variant's run over ``--frames`` scans; its
+def run_variants(args) -> None:
+    """Each variant of ``--variant`` run over ``--frames`` scans, one after
+    another on the scans rendered once; each run's
     ``parity.records_arrays``, seconds and kNN kernel launches to
-    ``--records-out``."""
+    ``--records-out``/<variant>.npz."""
     from pfilter_tpu_torch import bench, resolve_device
     from pfilter_tpu_torch.config import apply_dotted_overrides, kitti_config
     from pfilter_tpu_torch.pipeline import make_pipeline
-    from pfilter_tpu_torch.utils import parity
 
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = apply_dotted_overrides(kitti_config(), args.set) if args.set else kitti_config()
-    frames, _ = bench.render(cfg, args.frames, args.azimuth, bench.PROTOCOL["speed_m_per_frame"], dev)
-    if args.variant.startswith("ulp_"):
-        to = float("inf") if args.variant == "ulp_up" else float("-inf")
-        frames = [(torch.where(v[:, None], torch.nextafter(x, torch.full_like(x, to)), x), v) for x, v in frames]
-    if args.variant in EAGER:
-        knn_tiled.query_tiled_sorted = query_tiled_sorted_packed if args.variant == "packed" else knn_tiled.query_tiled_sorted_plain
-    pipe = make_pipeline(cfg.replace(mode=args.mode), device=dev, sync=False, fetch_lag=4, graphs=False if args.variant in EAGER else None)
-    t0 = time.perf_counter()
-    for i, scan in enumerate(frames):
-        pipe.process_frame(*scan)
-        if args.variant in NUDGES and i == NUDGE_FRAME:
-            pipe.state = nudge_pose(pipe.state, args.variant)
-        if (i + 1) % 50 == 0:
-            print(f"[{args.variant}] {i + 1} frames, {time.perf_counter() - t0:.0f} s", file=sys.stderr, flush=True)
-    pipe.flush()
-    rec = parity.records_arrays(pipe.records)
-    np.savez(args.records_out, seconds=time.perf_counter() - t0, kernel_launches=knn_tiled.KERNEL_LAUNCHES, **rec)
+    rendered, _ = bench.render(cfg, args.frames, args.azimuth, bench.PROTOCOL["speed_m_per_frame"], dev)
+    default_knn = knn_tiled.query_tiled_sorted
+    for variant in args.variant:
+        frames = rendered
+        if variant.startswith("ulp_"):
+            to = float("inf") if variant == "ulp_up" else float("-inf")
+            frames = [(torch.where(v[:, None], torch.nextafter(x, torch.full_like(x, to)), x), v) for x, v in rendered]
+        knn_tiled.query_tiled_sorted = {"packed": query_tiled_sorted_packed, "plain": knn_tiled.query_tiled_sorted_plain}.get(variant, default_knn)
+        nudge, nudge_frame = nudge_of(variant)
+        knn_tiled.KERNEL_LAUNCHES = 0
+        pipe = make_pipeline(cfg.replace(mode=args.mode), device=dev, sync=False, fetch_lag=4, graphs=False if variant in EAGER else None)
+        t0 = time.perf_counter()
+        for i, scan in enumerate(frames):
+            pipe.process_frame(*scan)
+            if i == nudge_frame:
+                pipe.state = parity.nudge_pose(pipe.state, nudge)
+            if (i + 1) % 100 == 0:
+                print(f"[{variant}] {i + 1} frames, {time.perf_counter() - t0:.0f} s", file=sys.stderr, flush=True)
+        pipe.flush()
+        rec = parity.records_arrays(pipe.records)
+        np.savez(Path(args.records_out) / f"{variant}.npz", seconds=time.perf_counter() - t0, kernel_launches=knn_tiled.KERNEL_LAUNCHES, **rec)
+        del pipe, frames
 
 
 def drifts(run: dict, gt: np.ndarray, scores: dict) -> dict:
@@ -195,46 +224,20 @@ def drifts(run: dict, gt: np.ndarray, scores: dict) -> dict:
     return out
 
 
-def pair_gaps(a: dict, b: dict, da: dict, db: dict) -> dict:
-    """How far two runs stand apart over the frames both hold: the largest
-    pose gap (m, rad), the largest map-size difference relative to the
-    smaller of the two sizes, and the drift differences (``da``, ``db``:
-    ``drifts``), percentage points."""
-    from pfilter_tpu_torch.utils import parity
-
-    g, r = parity.pose_gaps(a["q"], a["t"], b["q"], b["t"])
-    k = len(g)
-    sa, sb = np.asarray(a["map_sizes"][:k], np.float64), np.asarray(b["map_sizes"][:k], np.float64)
-    rel = np.abs(sa - sb) / np.maximum(np.minimum(sa, sb), 1.0)
-    out = {"gap_m": float(g.max()), "gap_rad": float(r.max()), "map_size_rel": float(rel.max())}
-    out.update({f"drift_{p}": abs(da[p] - db[p]) for p in da if p in db})
-    return out
-
-
-def spread(runs: dict, ref: dict, gt: np.ndarray, scores: dict) -> dict:
-    """The spread of the port's runs (every variant but ``plain``), the
-    reference left out: ``pairs`` (``pair_gaps`` of every two), ``largest``
-    (each measure's largest over the pairs) and ``drift_range``; then
-    ``to_reference`` (``pair_gaps`` of each run and the reference) and
-    ``inside``: per measure, whether the reference's gap to the ``kernel``
-    run is no larger than ``largest``, and whether its drift lies in
-    ``drift_range``."""
-    members = [v for v in runs if v != "plain"]
-    d = {v: drifts(runs[v], gt, scores) for v in members}
-    pairs = {f"{a} | {b}": pair_gaps(runs[a], runs[b], d[a], d[b]) for a, b in itertools.combinations(members, 2)}
-    largest = {m: max(p[m] for p in pairs.values()) for m in next(iter(pairs.values()))}
-    drift_range = {p: [min(d[v][p] for v in members), max(d[v][p] for v in members)] for p in d[members[0]]}
-    ref_d = {p: scores[p]["drift_t_pct"] for p in drift_range}
-    to_ref = {v: pair_gaps(runs[v], ref, d[v], ref_d) for v in members}
-    inside = {m: to_ref["kernel"][m] <= largest[m] for m in largest} if "kernel" in to_ref else {}
-    inside.update({f"drift_{p}_in_range": bool(lo <= ref_d[p] <= hi) for p, (lo, hi) in drift_range.items()})
-    return {"members": members, "drift": d, "pairs": pairs, "largest": largest, "drift_range": drift_range,
-            "reference_drift": ref_d, "to_reference": to_ref, "inside": inside}
-
-
-def _fmt(g: dict) -> str:
-    return ", ".join(f"{k} {v * 100:.3f} cm" if k == "gap_m" else f"{k} {v * 1e3:.3f} mrad" if k == "gap_rad"
-                     else f"{k} {v:.2%}" if k == "map_size_rel" else f"{k} {v:.4f} points" for k, v in g.items())
+def distinct(runs: dict) -> tuple[dict, dict]:
+    """``runs`` (name -> ``parity.records_arrays``, in order) split into the
+    runs that differ from every earlier one on some frame of some field, and
+    ``dropped``: each other run's name -> the earlier run it equals bit for
+    bit."""
+    kept, dropped = {}, {}
+    for v, run in runs.items():
+        fields = [k for k in run if np.ndim(run[k])]
+        same = next((u for u, r in kept.items() if all(np.array_equal(run[k], r[k]) for k in fields)), None)
+        if same is None:
+            kept[v] = run
+        else:
+            dropped[v] = same
+    return kept, dropped
 
 
 def scan_classes(args) -> None:
@@ -286,6 +289,144 @@ def _summary(res: dict) -> dict:
     }
 
 
+def run_window_variants(args) -> None:
+    """Each window of ``--window`` (a directory name under ``--windows``):
+    the port resumed from the stored reference state once as it is and once
+    per nudge of ``parity.NUDGES`` (``parity.run_window``), on the scans
+    rendered once; each run's ``parity.records_arrays`` to
+    ``--records-out``/<window>.<nudge or base>.npz."""
+    from pfilter_tpu_torch import bench, resolve_device
+    from pfilter_tpu_torch.config import kitti_config
+
+    dev = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    windows = json.loads((Path(args.windows) / "states.json").read_text())["windows"]
+    n = max(windows[w]["step"] for w in args.window) + parity.WINDOW_FRAMES
+    frames, _ = bench.render(kitti_config(), n, args.azimuth, bench.PROTOCOL["speed_m_per_frame"], dev)
+    for w in args.window:
+        cfg = kitti_config().replace(mode=windows[w]["path"])
+        for nudge in (None,) + parity.NUDGES:
+            t0 = time.perf_counter()
+            run, pipe, _ = parity.run_window(Path(args.windows) / w, cfg, frames, nudge=nudge)
+            np.savez(Path(args.records_out) / f"{w}.{nudge or 'base'}.npz", seconds=time.perf_counter() - t0, captures=len(pipe.captures), **run)
+            del pipe
+        print(f"[{w}] {len(parity.NUDGES) + 1} resumes done", file=sys.stderr, flush=True)
+
+
+def deal(items: list, jobs: int) -> list:
+    """``items`` dealt round-robin to at most ``jobs`` non-empty shares."""
+    return [share for share in (items[i::max(1, jobs)] for i in range(max(1, jobs))) if share]
+
+
+def run_workers(flag: str, shares: list, out: Path, common: list) -> int:
+    """One process per share (``flag`` then the share's items), all at once;
+    the first non-zero exit code, else 0."""
+    procs = [subprocess.Popen([sys.executable, __file__, flag, *share, "--records-out", str(out)] + common) for share in shares]
+    codes = [p.wait() for p in procs]
+    return next((c for c in codes if c), 0)
+
+
+def run_set(variants: list, jobs: int, common: list) -> dict:
+    """Every variant of ``variants`` run (``run_variants``, dealt to
+    ``jobs`` processes): name -> its records, in the order given.  Raises
+    if a process fails."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = run_workers("--variant", deal(list(variants), jobs), Path(tmp), common)
+        if rc:
+            raise RuntimeError(f"a variant's run failed (exit {rc})")
+        return {v: dict(np.load(Path(tmp) / f"{v}.npz")) for v in variants}
+
+
+def window_lengths(args, common: list) -> int:
+    """``--windows``: every window's ``W`` from the port's own nudged
+    resumes, and the un-nudged resume held to the reference's frames."""
+    from pfilter_tpu_torch import bench
+
+    names = list(json.loads((Path(args.windows) / "states.json").read_text())["windows"])
+    reference, _ = parity.load_reference(args.reference)
+    record = {"device": bench.device_line(torch.device(args.device)), "windows": {}}
+    print(f"device: {record['device']}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = run_workers("--window", deal(names, args.jobs), Path(tmp), common + ["--windows", str(args.windows)])
+        if rc:
+            print(f"torch_knn_packed_keys_ab: a window's run failed (exit {rc})", file=sys.stderr)
+            return rc
+        runs = {w: {v: dict(np.load(Path(tmp) / f"{w}.{v}.npz")) for v in ("base",) + parity.NUDGES} for w in names}
+    for w in names:
+        base, nudged = runs[w]["base"], [runs[w][v] for v in parity.NUDGES]
+        length, measured = parity.window_length(base, nudged)
+        res = parity.hold_window(base, parity.load_window(Path(args.windows) / w, reference), length)
+        gaps = {v: parity.pose_gaps(runs[w][v]["q"], runs[w][v]["t"], base["q"], base["t"]) for v in parity.NUDGES}
+        _, same = distinct(runs[w])
+        res["step"] = json.loads((Path(args.windows) / w / "meta.json").read_text())["step"]
+        print(f"{w}: W = {length} (nudged resumes within {parity.WINDOW_SPREAD_SHARE} of the gates over {measured} frames); largest gap "
+              f"of a nudged resume over all {len(base['t'])} frames {max(g[0].max() for g in gaps.values()) * 100:.3f} cm / "
+              f"{max(g[1].max() for g in gaps.values()) * 1e3:.3f} mrad; resumes equal to an earlier one bit for bit {same}; "
+              f"seconds per resume {float(base['seconds']):.1f}, captures {int(base['captures'])}", flush=True)
+        print("  " + parity.summary_window(w, res), flush=True)
+        record["windows"][w] = {
+            "W": length, "measured": measured, "seconds": float(base["seconds"]), "equal_resumes": same,
+            "nudged_gap_cm_per_frame": {v: (g[0] * 100).tolist() for v, g in gaps.items()},
+            "vs_reference": {"max_gap_cm": res["max_gap_t_m"] * 100, "max_gap_frame": res["max_gap_t_frame"],
+                             "max_gap_mrad": res["max_gap_rad"] * 1e3, "map_size_rel": res["map_size_rel"], "failures": res["failures"],
+                             "all": {"max_gap_cm": res["all"]["max_gap_t_m"] * 100, "max_gap_frame": res["all"]["max_gap_t_frame"],
+                                     "max_gap_mrad": res["all"]["max_gap_rad"] * 1e3, "map_size_rel": res["all"]["map_size_rel"]},
+                             "gap_cm_per_frame": (res["all"]["gap_t_m"] * 100).tolist()},
+        }
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(record, indent=1))
+    print(json.dumps({w: {k: v for k, v in r.items() if k != "nudged_gap_cm_per_frame"} | {"vs_reference": {k: v for k, v in r["vs_reference"].items() if k != "gap_cm_per_frame"}}
+                      for w, r in record["windows"].items()}), flush=True)
+    return 0
+
+
+def ensemble(args, common: list) -> tuple[dict, dict]:
+    """``--ensemble``: ENSEMBLE run, each run equal to an earlier one
+    dropped, and RESERVE's runs taken in order until ENSEMBLE_RUNS distinct
+    runs stand (or RESERVE is spent): ``(runs, dropped)`` as ``distinct``."""
+    runs, dropped = distinct(run_set(ENSEMBLE, args.jobs, common))
+    reserve = list(RESERVE)
+    while len(runs) < ENSEMBLE_RUNS and reserve:
+        take, reserve = reserve[: ENSEMBLE_RUNS - len(runs)], reserve[ENSEMBLE_RUNS - len(runs) :]
+        print(f"{args.mode}: {len(runs)} distinct runs ({dropped} repeat earlier ones); running {take}", file=sys.stderr, flush=True)
+        runs, more = distinct({**runs, **run_set(take, args.jobs, common)})
+        dropped.update(more)
+    if len(runs) < ENSEMBLE_RUNS:
+        print(f"{args.mode}: only {len(runs)} distinct runs of {ENSEMBLE_RUNS}, the reserve spent", file=sys.stderr, flush=True)
+    return runs, dropped
+
+
+def spread_record(args, runs: dict, dropped: dict, ref: dict, gt: np.ndarray, scores: dict, device: str) -> dict:
+    """``--spread-out``: each distinct run's drift (v1, full) and map means
+    over frames 100 to the end, the runs dropped, the reference's values,
+    the bands (``parity.spread_bands``) and the reference's standing
+    (``parity.standing``) on each measure, laid out as the bands."""
+    per_run = {v: {"drift": drifts(run, gt, scores), "map_mean": parity.map_means(run).tolist()} for v, run in runs.items()}
+    n = len(next(iter(runs.values()))["t"])
+    ref_vals = {"drift": {p: scores[p]["drift_t_pct"] for p in next(iter(per_run.values()))["drift"]},
+                "map_mean": parity.map_means({"map_sizes": ref["map_sizes"][:n]}).tolist()}
+    standing = {"drift": {p: parity.standing([r["drift"][p] for r in per_run.values()], x) for p, x in ref_vals["drift"].items()},
+                "map_mean": [parity.standing([r["map_mean"][m] for r in per_run.values()], x) for m, x in enumerate(ref_vals["map_mean"])]}
+    return {"device": device, "torch": torch.__version__, "cuda": torch.version.cuda, "commit": args.commit, "frames": n,
+            "nudge_frames": [NUDGE_FRAME, LATE_NUDGE_FRAME], "reserve_nudge_frame": RESERVE_NUDGE_FRAME, "runs": per_run,
+            "dropped": dropped, "reference": ref_vals, "bands": parity.spread_bands({"paths": {args.mode: {"runs": per_run}}})[args.mode],
+            "standing": standing}
+
+
+def write_spread(path: Path, mode: str, rec: dict) -> None:
+    """Merge one path's spread record into ``path``."""
+    doc = json.loads(path.read_text()) if path.exists() else {}
+    doc.update(generator="tools/torch_knn_packed_keys_ab.py --ensemble --spread-out",
+               measures="per run: drift, % (v1: bench.py's 100-300 m over the first 300 frames; full: 100-800 m over every frame), and each "
+                        "map's mean size over frames 100 to the end (ES: edge, surf; BPF: beam, pillar, facade)",
+               runs="the distinct runs of the ensemble: a run equal bit for bit to an earlier one is in 'dropped' (name -> the run it equals)",
+               band="utils/parity.band: 3 * sqrt(2) * the sample standard deviation (n - 1) over the runs")
+    doc.setdefault("paths", {})[mode] = rec
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(doc, indent=1) + "\n")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="es", choices=("es", "bpf"))
@@ -294,48 +435,51 @@ def main(argv=None) -> int:
     ap.add_argument("--azimuth", type=int, default=1800)
     ap.add_argument("--set", action="append", default=[], help="dotted config override k=v (kitti_config())")
     ap.add_argument("--variants", nargs="+", default=["plain", "packed"], choices=VARIANTS)
-    ap.add_argument("--jobs", type=int, default=2, help="variants run at once, each in its own process")
+    ap.add_argument("--ensemble", action="store_true", help=f"run ENSEMBLE_RUNS ({ENSEMBLE_RUNS}) distinct runs in place of --variants")
+    ap.add_argument("--spread-out", default=None, help="write each run's drift and map means, the bands and the reference's standing here")
+    ap.add_argument("--commit", default=None, help="the commit recorded by --spread-out (default: git's HEAD, where there is a .git)")
+    ap.add_argument("--windows", default=None, metavar="DIR", help="measure each stored state's window length W (and nothing else)")
+    ap.add_argument("--jobs", type=int, default=2, help="processes at once; the variants (or windows) are dealt to them")
     ap.add_argument("--reference", default=str(REFERENCE))
     ap.add_argument("--out", default=None, help="also write the whole record, per-frame gaps included, as JSON")
     ap.add_argument("--classes", type=int, default=0, help="only count what a one-ulp shift does to the first N scans' BPF classes")
-    ap.add_argument("--variant", choices=VARIANTS, help=argparse.SUPPRESS)
+    ap.add_argument("--variant", nargs="+", choices=VARIANTS, help=argparse.SUPPRESS)
+    ap.add_argument("--window", nargs="+", help=argparse.SUPPRESS)
     ap.add_argument("--records-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     from pfilter_tpu_torch import bench
-    from pfilter_tpu_torch.utils import metrics, parity, synthetic
+    from pfilter_tpu_torch.utils import metrics, synthetic
 
     if args.frames is None:
         args.frames = bench.PROTOCOL["frames"] if args.mode == "es" else bench.PROTOCOL["bpf_frames"]
     if args.variant is not None:
-        run_variant(args)
+        run_variants(args)
+        return 0
+    if args.window is not None:
+        run_window_variants(args)
         return 0
     if args.classes:
         scan_classes(args)
         return 0
+    common = ["--mode", args.mode, "--frames", str(args.frames), "--device", args.device, "--azimuth", str(args.azimuth)]
+    common += [f"--set={s}" for s in args.set]
+    if args.windows is not None:
+        return window_lengths(args, common)
+    if args.commit is None:
+        r = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT, capture_output=True, text=True)
+        args.commit = r.stdout.strip() if r.returncode == 0 else "unknown (no .git)"
 
     record = {"device": bench.device_line(torch.device(args.device)), "mode": args.mode, "frames": args.frames, "variants": {}}
     print(f"device: {record['device']}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     ref, side = parity.load_reference(args.reference)
     scores = side["paths"][args.mode]["scores"]
     gt = bench.ground_truth(synthetic.make_loop_trajectory(args.frames, speed=bench.PROTOCOL["speed_m_per_frame"]))
-    with tempfile.TemporaryDirectory() as tmp:
-        outs = {v: Path(tmp) / f"{v}.npz" for v in args.variants}
-        common = ["--mode", args.mode, "--frames", str(args.frames), "--device", args.device, "--azimuth", str(args.azimuth)]
-        common += [f"--set={s}" for s in args.set]
-        pending, running, rc = list(args.variants), {}, 0
-        while pending or running:
-            while pending and len(running) < args.jobs:
-                v = pending.pop(0)
-                running[v] = subprocess.Popen([sys.executable, __file__, "--variant", v, "--records-out", str(outs[v])] + common)
-            for v, proc in list(running.items()):
-                if proc.poll() is not None:
-                    rc = rc or proc.returncode
-                    del running[v]
-            time.sleep(1.0)
-        if rc:
-            print(f"torch_knn_packed_keys_ab: a variant's run failed (exit {rc})", file=sys.stderr)
-            return rc
-        runs = {v: dict(np.load(outs[v])) for v in args.variants}
+    dropped = {}
+    try:
+        runs, dropped = ensemble(args, common) if args.ensemble else (run_set(args.variants, args.jobs, common), {})
+    except RuntimeError as e:
+        print(f"torch_knn_packed_keys_ab: {e}", file=sys.stderr)
+        return 1
     base = runs.get("kernel")
     if base is not None:  # the kernel run scored like a stored run: each score's frames and lengths
         base_scores = {
@@ -344,24 +488,23 @@ def main(argv=None) -> int:
                 lengths=tuple(s["lengths"]), step=10)["t_err_pct"])
             for name, s in scores.items() if s["frames"] <= len(base["t"]) and s["lengths"]
         }
-    if len([v for v in runs if v != "plain"]) >= 2:
-        sp = spread(runs, ref[args.mode], gt, scores)
-        record["spread"] = sp
-        print(f"{args.mode}: the port's own spread over {sp['members']}, the reference left out:", flush=True)
-        for pair, g in sp["pairs"].items():
-            print(f"  {pair}: {_fmt(g)}", flush=True)
-        print(f"  largest: {_fmt(sp['largest'])}; drift {' '.join(f'{p} {lo:.4f}-{hi:.4f} %' for p, (lo, hi) in sp['drift_range'].items())}", flush=True)
-        print(f"{args.mode}: the reference (drift {' '.join(f'{p} {x:.4f} %' for p, x in sp['reference_drift'].items())}) against each run:", flush=True)
-        for v, g in sp["to_reference"].items():
-            print(f"  {v} | reference: {_fmt(g)}", flush=True)
-        print(f"{args.mode}: the reference inside the port's spread: {sp['inside']}", flush=True)
+    if args.spread_out:
+        rec = spread_record(args, {v: r for v, r in runs.items() if v != "plain"}, dropped, ref[args.mode], gt, scores, record["device"])
+        write_spread(Path(args.spread_out), args.mode, rec)
+        record["spread_record"] = {k: v for k, v in rec.items() if k != "runs"}
+        for kind, bands in rec["bands"].items():
+            for key, b in (bands.items() if isinstance(bands, dict) else enumerate(bands)):
+                st = rec["standing"][kind][key]
+                print(f"{args.mode} {kind} {key}: band {b:.6g}; the port's {st['n']} distinct runs mean {st['mean']:.6g}, s {st['s']:.6g}, "
+                      f"range {st['min']:.6g}-{st['max']:.6g}; the reference z = {st['z']:.3f}, rank {st['rank']} of {st['of']}", flush=True)
+        print(f"{args.mode}: runs dropped as equal to an earlier one: {dropped}", flush=True)
     for v, run in runs.items():
-        res = bench.hold_to_reference(run, ref[args.mode], scores, gt)
+        res = bench.hold_to_reference(run, ref[args.mode], scores, gt, args.mode)
         print(parity.summary_long(f"{args.mode}, {v}, against the reference", res), flush=True)
         record["variants"][v] = {"seconds": float(run["seconds"]), "kernel_launches": int(run["kernel_launches"]), "vs_reference": _summary(res),
                                  "per_frame": {f: run[f].tolist() for f in ("q", "t", "map_sizes")}}
         if base is not None and v != "kernel":
-            res = bench.hold_to_reference(run, base, base_scores, gt)
+            res = bench.hold_to_reference(run, base, base_scores, gt, args.mode)
             print(parity.summary_long(f"{args.mode}, {v}, against the kernel run", res), flush=True)
             record["variants"][v]["vs_kernel"] = _summary(res)
     if args.out:

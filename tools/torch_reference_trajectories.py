@@ -30,6 +30,28 @@ ATE scored as ``chip_smoke.run_protocol`` scores them (``scores``: at 100
 frames; for ES's 850 and BPF's 300 frames also bench.py's v1 protocol and
 the full 100-800 m one).
 
+``--states`` (``JAX_PLATFORMS=cpu python
+tools/torch_reference_trajectories.py --states``, ~40 min, ES and BPF at
+once) re-runs the ES (850 frames) and BPF (300) paths and saves the
+reference pipeline's state after the frames of ``STATE_FRAMES``
+(``pfilter_tpu.utils.checkpoint.save_state``, ``step`` = frame + 1) into
+``tests/data/torch_reference_states_v1/<path>_<step>/``, and
+``states.json``: the generator, JAX version, commit, windows, and, per
+path, whether the re-run equals the stored run of ``--out`` bit for bit
+(frame by frame: ``vs_stored``).  ``utils/parity.compare_window`` resumes
+the port from each state and holds it to the stored run's next WINDOW
+frames; where the re-run differs from the stored run, its own next WINDOW
+frames are written beside each state (``window.npz``) and used instead.
+
+``--small-state`` (``JAX_PLATFORMS=cpu python
+tools/torch_reference_trajectories.py --small-state``, ~1 min) runs the
+reference's ES at ``tests/test_es_odometry.py::small_config`` widths over
+SMALL_FRAMES scans of a short corridor (rendered by the port's renderer on
+the CPU, ``render_shared_sequence``) and saves its state after frame
+SMALL_STEP - 1 into ``tests/data/torch_reference_small_state_v1/es_<step>/``
+with the run's later frames (``window.npz``), and ``small.json``, the
+recipe the CPU tests render the same scans from.
+
 ``--report`` prints the stored paths' scores and the reference's own gaps
 between its map-sharded runs at ``n_map`` 1, 2, 4 and its single-device
 runs, held to ``utils/parity.py``'s gates.  JAX is imported inside
@@ -128,8 +150,10 @@ def scores(q, t) -> dict:
     return out
 
 
-def run_path(name: str) -> tuple[dict, dict]:
-    """One path of ``PATHS`` on the reference package: (arrays, record)."""
+def run_path(name: str, on_frame=None) -> tuple[dict, dict]:
+    """One path of ``PATHS`` on the reference package: (arrays, record).
+    ``on_frame(i, pipe)``, if given, is called after each frame ``i`` of a
+    single-device path."""
     import jax
     import jax.numpy as jnp
 
@@ -159,6 +183,8 @@ def run_path(name: str) -> tuple[dict, dict]:
         pipe = make_pipeline(cfg, sync=True)
         for i in range(n_frames):
             pipe.process_frame(*scan(i))
+            if on_frame is not None:
+                on_frame(i, pipe)
         recs = pipe.records
         out["overflow"] = np.stack([np.asarray(r.overflow).reshape(-1) for r in recs]).astype(np.int32)
         if mode == "es":
@@ -218,6 +244,157 @@ def run_one(name: str, part: Path) -> None:
           f"ATE {s['ate_rmse_m']:.4f} m, overflow {rec['overflow_total']}", flush=True)
 
 
+# ``--states``: the reference's state saved after these frames of its ES and
+# BPF runs (each just before a stretch where the port's own runs one ulp
+# apart part: ES 304-345, 487-529, 815-849; BPF's pillar map at 286), and the
+# WINDOW frames that follow each, which ``utils/parity.compare_window`` holds
+# the port to when it resumes from that state.
+STATE_FRAMES = {"es": (149, 294, 480, 799), "bpf": (149, 249)}
+WINDOW = 50
+STATES_OUT = ROOT / "tests" / "data" / "torch_reference_states_v1"
+WINDOW_FIELDS = ("q", "t", "overflow", "map_sizes", "n_corr", "trunc")
+
+
+def run_states(name: str, out: Path, stored: Path) -> None:
+    """Re-run path ``name`` (``es`` or ``bpf``) and save the reference's
+    state after each frame of ``STATE_FRAMES[name]`` into
+    ``out/<name>_<step>/`` (``pfilter_tpu.utils.checkpoint.save_state``,
+    ``step`` = frame + 1).  ``out/<name>.json`` records how the re-run
+    compares with the stored run of ``stored``, frame by frame; where they
+    differ, ``window.npz`` beside each state holds the re-run's own WINDOW
+    frames from ``step`` on."""
+    from pfilter_tpu.utils import checkpoint as jckpt
+
+    def on_frame(i, pipe):
+        if i in STATE_FRAMES[name]:
+            jckpt.save_state(out / f"{name}_{i + 1}", pipe.state, step=i + 1, extra=dict(path=name, frame=i))
+
+    arrays, rec = run_path(name, on_frame)
+    with np.load(stored) as z:
+        ref = {k.split(".", 1)[1]: z[k] for k in z.files if k.startswith(name + ".")}
+    diff = {}
+    for k in WINDOW_FIELDS:
+        if k in arrays:
+            n = min(len(arrays[k]), len(ref[k]))
+            a, b = np.asarray(arrays[k])[:n], np.asarray(ref[k])[:n]
+            bad = np.flatnonzero((a.reshape(len(a), -1) != b.reshape(len(b), -1)).any(axis=1))
+            diff[k] = dict(frames_differing=int(bad.size), first=int(bad[0]) if bad.size else None,
+                           max_abs=float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()))
+    equal = all(d["frames_differing"] == 0 for d in diff.values())
+    for frame in STATE_FRAMES[name]:
+        step = frame + 1
+        if not equal:
+            np.savez_compressed(out / f"{name}_{step}" / "window.npz",
+                                **{k: np.asarray(arrays[k])[step: step + WINDOW] for k in WINDOW_FIELDS if k in arrays})
+    rec.update(state_frames=list(STATE_FRAMES[name]), window=WINDOW, equal_to_stored=equal, vs_stored=diff, scores=scores(arrays["q"], arrays["t"]))
+    (out / f"{name}.json").write_text(json.dumps(rec))
+    print(f"{name}: {rec['frames']} frames in {rec['seconds']:.1f} s; states after frames {list(STATE_FRAMES[name])}; "
+          f"bit for bit the stored run: {rec['equal_to_stored']}", flush=True)
+
+
+def states_main(out: Path, stored: Path, one) -> int:
+    """``--states``: both paths at once, each in a process of its own, then
+    the sidecar ``out/states.json``."""
+    import jax
+
+    out.mkdir(parents=True, exist_ok=True)
+    if one is not None:
+        run_states(one, out, stored)
+        return 0
+
+    def worker(name):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--states", str(out), "--out", str(stored), "--one", name]
+        return name, subprocess.run(cmd, cwd=ROOT, env=dict(os.environ)).returncode
+
+    with ThreadPoolExecutor(len(STATE_FRAMES)) as pool:
+        codes = dict(pool.map(worker, STATE_FRAMES))
+    if any(codes.values()):
+        print(f"failed: {codes}", file=sys.stderr)
+        return 1
+    paths = {}
+    for name in STATE_FRAMES:
+        side = out / f"{name}.json"
+        paths[name] = json.loads(side.read_text())
+        side.unlink()
+    sidecar = dict(
+        generator="tools/torch_reference_trajectories.py --states",
+        jax=jax.__version__,
+        numpy=np.__version__,
+        platform="cpu (JAX_PLATFORMS=cpu)",
+        commit=commit(),
+        config="pfilter_tpu.config.kitti_config() (mode es / bpf), the single-device pipeline (make_pipeline, sync=True)",
+        world=f"make_city_world(seed={WORLD_SEED}), make_loop_trajectory(frames, speed={SPEED}), HDL-64 at {AZIMUTH} azimuth",
+        noise=noise_recipe(),
+        stored=str(stored.relative_to(ROOT)) if stored.is_relative_to(ROOT) else str(stored),
+        layout=f"<path>_<step>/: state.npz + meta.json (pfilter_tpu.utils.checkpoint.save_state after frame step - 1, "
+               f"meta step = frame + 1); the window is the stored run's frames step .. step + {WINDOW - 1}, or, where the re-run "
+               f"differs from the stored run, window.npz beside the state (the re-run's frames: {', '.join(WINDOW_FIELDS)})",
+        windows={f"{n}_{f + 1}": dict(path=n, step=f + 1, frames=[f + 1, f + WINDOW]) for n, fs in STATE_FRAMES.items() for f in fs},
+        paths=paths,
+    )
+    (out / "states.json").write_text(json.dumps(sidecar, indent=1) + "\n")
+    size = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
+    print(f"wrote {out} ({size} bytes): {sorted(sidecar['windows'])}", flush=True)
+    return 0
+
+
+# ``--small-state``: the reference's ES at tests/test_es_odometry.py's
+# small_config widths on a short corridor, its state after frame
+# SMALL_STEP - 1 and its later frames: the CPU tests' window
+# (tests/test_torch_parity_windows.py), so that no test runs the reference.
+SMALL_OUT = ROOT / "tests" / "data" / "torch_reference_small_state_v1"
+SMALL = dict(world_seed=3, corridor_len=60.0, frames=8, speed=0.8, azimuth=720, step=4)
+
+
+def small_scans(lidar, recipe: dict = SMALL) -> tuple[np.ndarray, np.ndarray]:
+    """The scans of ``recipe`` (``make_world(seed, corridor_len)``,
+    ``make_trajectory(frames, speed)`` at ``azimuth``), rendered by the
+    port's renderer on the CPU with ``shared_range_noise``: ``(xyz [F, N,
+    3], valid [F, N])`` as numpy.  ``lidar``: the port's ``LidarConfig``."""
+    from pfilter_tpu_torch.utils import synthetic
+
+    world = synthetic.make_world(seed=recipe["world_seed"], corridor_len=recipe["corridor_len"])
+    poses = synthetic.make_trajectory(recipe["frames"], speed=recipe["speed"])
+    xyz, valid = synthetic.render_shared_sequence(world, poses, lidar, recipe["azimuth"], device="cpu")
+    return xyz.numpy(), valid.numpy()
+
+
+def small_state_main(out: Path) -> int:
+    """``--small-state``: run the reference's ES over ``small_scans`` and
+    save its state after frame SMALL["step"] - 1 into ``out/es_<step>/``
+    with ``window.npz`` (the run's frames from ``step`` on), and
+    ``out/small.json``."""
+    import jax
+    from pfilter_tpu.pipeline import ESPipeline
+    from pfilter_tpu.utils import checkpoint as jckpt
+    from tests.test_es_odometry import small_config
+    from tests.torch_parity import torch_config
+
+    from pfilter_tpu_torch.utils import parity
+
+    cfg = small_config()
+    xyz, valid = small_scans(torch_config(cfg).lidar)
+    step, name = SMALL["step"], f"es_{SMALL['step']}"
+    pipe = ESPipeline(cfg=cfg)
+    for i in range(SMALL["frames"]):
+        pipe.process_frame(xyz[i], valid[i])
+        if i == step - 1:
+            jckpt.save_state(out / name, pipe.state, step=step, extra=dict(path="es", frame=i))
+    run = parity.records_arrays(pipe.records)
+    np.savez_compressed(out / name / "window.npz", **{k: v[step:] for k, v in run.items()})
+    (out / "small.json").write_text(json.dumps(dict(
+        generator="tools/torch_reference_trajectories.py --small-state", jax=jax.__version__, numpy=np.__version__,
+        platform="cpu (JAX_PLATFORMS=cpu)", commit=commit(),
+        config="tests/test_es_odometry.py::small_config(), pfilter_tpu.pipeline.ESPipeline",
+        scans="pfilter_tpu_torch.utils.synthetic: make_world(seed=world_seed, corridor_len), make_trajectory(frames, speed), "
+              "render_shared_sequence at azimuth on the CPU (tools/torch_reference_trajectories.py small_scans)",
+        recipe=SMALL, state=name, window=f"{name}/window.npz: the run's frames {step} .. {SMALL['frames'] - 1}",
+    ), indent=1) + "\n")
+    size = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
+    print(f"wrote {out} ({size} bytes)", flush=True)
+    return 0
+
+
 # The reference against itself (``--report``): each map-sharded run against
 # the run at n_map = 1, and that against the single-device pipeline.
 SELF_PAIRS = (
@@ -263,6 +440,11 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", default=None, help="directory for each path's results (default: a temporary one)")
     ap.add_argument("--out", default=str(OUT))
     ap.add_argument("--report", action="store_true", help="print the stored paths' scores and the reference's own sharded gaps")
+    ap.add_argument("--states", nargs="?", const=str(STATES_OUT), default=None, metavar="DIR",
+                    help=f"re-run ES and BPF, saving the reference's state after the frames of STATE_FRAMES into DIR "
+                         f"(default {STATES_OUT.relative_to(ROOT)}), checked against the stored runs of --out")
+    ap.add_argument("--small-state", nargs="?", const=str(SMALL_OUT), default=None, metavar="DIR",
+                    help=f"save the reference's ES state of a short small-config run into DIR (default {SMALL_OUT.relative_to(ROOT)})")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)  # a worker: run this path into --parts
     args = ap.parse_args(argv)
     if args.report:
@@ -276,6 +458,10 @@ def main(argv=None) -> int:
 
     jax.config.update("jax_platforms", "cpu")
     out = Path(args.out)
+    if args.states is not None:
+        return states_main(Path(args.states).resolve(), out.resolve(), args.one)
+    if args.small_state is not None:
+        return small_state_main(Path(args.small_state).resolve())
     scratch = tempfile.TemporaryDirectory() if args.parts is None else None
     parts = Path(args.parts) if args.parts else Path(scratch.name)
     parts.mkdir(parents=True, exist_ok=True)
